@@ -1,5 +1,7 @@
-"""Diffusion schedule tables and the unguided DDIM sampler."""
-from .sampler import sample_loop
+"""Diffusion schedule tables and the DDPM / DDIM samplers, with collision
+guidance."""
+from .sampler import GuidanceConfig, StatefulGuidanceFn, sample_loop
 from .schedule import DiffusionSchedule, make_schedule
 
-__all__ = ["DiffusionSchedule", "make_schedule", "sample_loop"]
+__all__ = ["DiffusionSchedule", "GuidanceConfig", "StatefulGuidanceFn",
+           "make_schedule", "sample_loop"]

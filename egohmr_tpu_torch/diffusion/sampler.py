@@ -1,20 +1,71 @@
-"""Unguided DDIM sampling (port of the DDIM half of
+"""DDPM and DDIM sampling loops with optional collision guidance (port of
 egohmr_tpu/diffusion/sampler.py).
 
-The JAX `lax.scan` becomes a Python loop over the (few) respaced steps;
-PyTorch dispatches each step's kernels asynchronously. DDPM and collision
-guidance are not ported yet.
+The JAX `lax.scan` becomes a Python loop over the steps, and its `lax.cond`
+on the step index a Python `if`: PyTorch dispatches each step's kernels
+asynchronously. The denoiser only predicts x0 from (x_t, t); all
+conditioning is computed once outside the loop. Guidance is a closure that
+returns the collision-score gradient w.r.t. x_t; it runs on the low-noise
+steps only (`t_idx <= 10` for DDPM, `t_idx <= 3` for DDIM).
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from dataclasses import dataclass
+from typing import Any, Callable, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
-from .schedule import DiffusionSchedule, predict_eps_from_xstart
+from .schedule import (
+    DiffusionSchedule,
+    predict_eps_from_xstart,
+    predict_xstart_from_eps,
+    q_posterior_mean,
+    q_sample,
+)
 
 # denoise_fn(x_t [B, D], t_original int64 [B]) -> pred_x_start [B, D]
 DenoiseFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+# guidance_fn(x_t [B, D], t int64 [B]) -> gradient [B, D]
+GuidanceFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+class StatefulGuidanceFn(NamedTuple):
+    """Guidance with state cached across steps.
+
+    Adjacent low-noise guided steps move the body by millimetres, so the
+    gradient-free selection pass (full LBS, normals, per-step top-K and the
+    nearest-vertex argmin) can be reused between refreshes; only the
+    differentiable selective re-pose runs on every guided step.
+    `init_state(x)` builds an empty state; `fn(x, t, state, refresh)`
+    returns (grad, new_state), recomputing the selection when `refresh` is
+    True. The sampler refreshes on the 1st, (1 + refresh_every)-th, ...
+    guided step."""
+
+    init_state: Callable[[torch.Tensor], Any]
+    fn: Callable[[torch.Tensor, torch.Tensor, Any, bool], Tuple[torch.Tensor, Any]]
+    refresh_every: int = 2
+
+
+def _call_guidance(guidance_fn, x, t, gaux):
+    """Dispatch plain or stateful guidance; returns (grad, new_gaux)."""
+    if isinstance(guidance_fn, StatefulGuidanceFn):
+        gstate, gcount = gaux
+        refresh = gcount % guidance_fn.refresh_every == 0
+        grad, new_state = guidance_fn.fn(x, t, gstate, refresh)
+        return grad, (new_state, gcount + 1)
+    return guidance_fn(x, t), gaux
+
+
+@dataclass(frozen=True)
+class GuidanceConfig:
+    """Collision-guidance hyperparameters (the reference's defaults)."""
+
+    cond_grad_weight: float = 2.0
+    ddpm_threshold: int = 10   # apply guidance when t_idx <= threshold
+    ddpm_fixed_below: int = 5  # below this, use the fixed 0.01 coefficient
+    ddpm_fixed_coeff: float = 0.01
+    ddim_threshold: int = 3
+    ddim_scale: float = 1.0
 
 
 def _step_noise(x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
@@ -23,13 +74,40 @@ def _step_noise(x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
                        dtype=x.dtype)
 
 
-def _ddim_step(schedule: DiffusionSchedule, denoise_fn: DenoiseFn, eta: float,
-               x: torch.Tensor, t_idx: int,
-               generator: Optional[torch.Generator]) -> torch.Tensor:
+def _ddpm_step(schedule: DiffusionSchedule, denoise_fn: DenoiseFn,
+               guidance_fn: Optional[GuidanceFn], gcfg: GuidanceConfig,
+               x: torch.Tensor, t_idx: int, gaux,
+               generator: Optional[torch.Generator]):
     t = torch.full((x.shape[0],), t_idx, dtype=torch.int64, device=x.device)
     pred_xstart = denoise_fn(x, schedule.timestep_map[t])
-    eps = predict_eps_from_xstart(schedule, x, t, pred_xstart)
+    mean = q_posterior_mean(schedule, pred_xstart, x, t)
+    if guidance_fn is not None and t_idx <= gcfg.ddpm_threshold:
+        grad, gaux = _call_guidance(guidance_fn, x, t, gaux)
+        if t_idx >= gcfg.ddpm_fixed_below:
+            coeff = gcfg.cond_grad_weight * schedule.posterior_variance[t][:, None]
+        else:
+            coeff = gcfg.cond_grad_weight * gcfg.ddpm_fixed_coeff
+        mean = mean + coeff * grad
+    if t_idx == 0:  # the last step adds no noise
+        return mean, gaux
+    sigma = torch.exp(0.5 * schedule.posterior_log_variance_clipped[t])[:, None]
+    return mean + sigma * _step_noise(x, generator), gaux
+
+
+def _ddim_step(schedule: DiffusionSchedule, denoise_fn: DenoiseFn,
+               guidance_fn: Optional[GuidanceFn], gcfg: GuidanceConfig,
+               eta: float, x: torch.Tensor, t_idx: int, gaux,
+               generator: Optional[torch.Generator]):
+    t = torch.full((x.shape[0],), t_idx, dtype=torch.int64, device=x.device)
+    pred_xstart = denoise_fn(x, schedule.timestep_map[t])
     alpha_bar = schedule.alphas_cumprod[t][:, None]
+    if guidance_fn is not None and t_idx <= gcfg.ddim_threshold:
+        # shift eps by -sqrt(1 - alpha_bar) * grad * scale, re-derive x0
+        eps = predict_eps_from_xstart(schedule, x, t, pred_xstart)
+        grad, gaux = _call_guidance(guidance_fn, x, t, gaux)
+        eps = eps - torch.sqrt(1.0 - alpha_bar) * grad * gcfg.ddim_scale
+        pred_xstart = predict_xstart_from_eps(schedule, x, t, eps)
+    eps = predict_eps_from_xstart(schedule, x, t, pred_xstart)
     alpha_bar_prev = schedule.alphas_cumprod_prev[t][:, None]
     sigma = (eta * torch.sqrt((1 - alpha_bar_prev) / (1 - alpha_bar))
              * torch.sqrt(1 - alpha_bar / alpha_bar_prev))
@@ -38,8 +116,8 @@ def _ddim_step(schedule: DiffusionSchedule, denoise_fn: DenoiseFn, eta: float,
                                           min=0.0)) * eps)
     # sigma is exactly 0 for eta == 0, and the last step adds no noise
     if eta == 0 or t_idx == 0:
-        return mean_pred
-    return mean_pred + sigma * _step_noise(x, generator)
+        return mean_pred, gaux
+    return mean_pred + sigma * _step_noise(x, generator), gaux
 
 
 def sample_loop(
@@ -48,18 +126,63 @@ def sample_loop(
     generator: Optional[torch.Generator],
     shape: Tuple[int, ...],
     *,
+    sampler: str = "ddpm",
     eta: float = 0.0,
+    guidance_fn: Optional[Union[GuidanceFn, StatefulGuidanceFn]] = None,
+    guidance: GuidanceConfig = GuidanceConfig(),
     noise: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    skip_timesteps: int = 0,
+    init_data: Optional[torch.Tensor] = None,
+    dump_steps: Optional[Sequence[int]] = None,
+):
     """Run the reverse diffusion; returns (final_sample, final_pred_xstart).
 
     x_T is `noise` when given, else drawn from `generator` on the
-    generator's device. At t=0 the DDIM mean equals pred_xstart, so both
-    returned tensors are the final sample, as in the JAX package."""
+    generator's device; the per-step noise always comes from `generator`.
+    At t=0 the posterior mean (DDPM) and the DDIM mean equal pred_xstart,
+    so both returned tensors are the final sample, as in the JAX package.
+
+    `skip_timesteps`/`init_data` warm-start the chain: the loop starts
+    `skip_timesteps` steps late from `init_data` (zeros when absent)
+    noised to that step with x_T as the noise.
+
+    `dump_steps`: 0-based loop-iteration indices (0 = the noisiest step)
+    whose post-step samples to return as well; with it the result is
+    (final_sample, final_pred_xstart, dumps [K, B, D]). Out-of-range
+    indices raise."""
+    if sampler not in ("ddpm", "ddim"):
+        raise ValueError(f"unknown sampler: {sampler}")
     if noise is None:
         x = torch.randn(shape, generator=generator, device=generator.device)
     else:
         x = noise
-    for t_idx in range(schedule.num_timesteps - 1, -1, -1):
-        x = _ddim_step(schedule, denoise_fn, eta, x, t_idx, generator)
+    t_start = schedule.num_timesteps - skip_timesteps
+    if skip_timesteps and init_data is None:
+        init_data = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    if init_data is not None:
+        t0 = torch.full((shape[0],), t_start - 1, dtype=torch.int64, device=x.device)
+        x = q_sample(schedule, init_data, t0, x)
+    if dump_steps is not None:
+        bad = [i for i in dump_steps if not 0 <= int(i) < t_start]
+        if bad:
+            raise ValueError(
+                f"dump_steps {bad} out of range for a {t_start}-step chain")
+
+    gaux = ()
+    if isinstance(guidance_fn, StatefulGuidanceFn):
+        gaux = (guidance_fn.init_state(x), 0)
+    traj = []
+    for t_idx in range(t_start - 1, -1, -1):
+        if sampler == "ddpm":
+            x, gaux = _ddpm_step(schedule, denoise_fn, guidance_fn, guidance,
+                                 x, t_idx, gaux, generator)
+        else:
+            x, gaux = _ddim_step(schedule, denoise_fn, guidance_fn, guidance,
+                                 eta, x, t_idx, gaux, generator)
+        if dump_steps is not None:
+            traj.append(x)
+    if dump_steps is not None:
+        picked = [traj[int(i)] for i in dump_steps]
+        dumps = torch.stack(picked) if picked else x.new_empty((0, *x.shape))
+        return x, x, dumps
     return x, x

@@ -150,6 +150,22 @@ def make_schedule(num_timesteps: int = 50, schedule_name: str = "cosine",
     return _build_tables(np.array(new_betas), np.array(tmap))
 
 
+def q_sample(schedule: DiffusionSchedule, x_start: torch.Tensor, t: torch.Tensor,
+             noise: torch.Tensor) -> torch.Tensor:
+    """Sample q(x_t | x_0). x_start, noise [B, D]; t int64 [B]."""
+    c1 = schedule.sqrt_alphas_cumprod[t][:, None]
+    c2 = schedule.sqrt_one_minus_alphas_cumprod[t][:, None]
+    return c1 * x_start + c2 * noise
+
+
+def q_posterior_mean(schedule: DiffusionSchedule, x_start: torch.Tensor,
+                     x_t: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Posterior mean of q(x_{t-1} | x_t, x_0)."""
+    c1 = schedule.posterior_mean_coef1[t][:, None]
+    c2 = schedule.posterior_mean_coef2[t][:, None]
+    return c1 * x_start + c2 * x_t
+
+
 def predict_eps_from_xstart(schedule: DiffusionSchedule, x_t: torch.Tensor,
                             t: torch.Tensor, pred_xstart: torch.Tensor) -> torch.Tensor:
     c1 = schedule.sqrt_recip_alphas_cumprod[t][:, None]

@@ -7,9 +7,10 @@ from .egohmr import (
     compute_condition,
     init_random_,
     make_denoise_fn,
+    make_guidance_fn,
     model_outputs,
 )
 
 __all__ = ["BodyRepStats", "Condition", "EgoHMR", "EgoHMRConfig",
            "compute_condition", "init_random_", "make_denoise_fn",
-           "model_outputs"]
+           "make_guidance_fn", "model_outputs"]

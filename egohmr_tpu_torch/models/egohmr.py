@@ -8,8 +8,12 @@
   model_outputs     — SMPL skinning and full-image reprojection
 
 The module tree (`EgoHMR`) is named like the reference `state_dict`, so
-`interop.state_dict_from_jax` weights load with `strict=True`. Training,
-guidance and the losses are not ported yet.
+`interop.state_dict_from_jax` weights load with `strict=True`.
+
+  make_guidance_fn  — the collision-score gradient w.r.t. x_t for guided
+                      sampling (kernel K2 finds the nearest vertices)
+
+Training and the losses are not ported yet.
 """
 from __future__ import annotations
 
@@ -18,9 +22,19 @@ import math
 from dataclasses import dataclass
 from typing import Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
+from ..collision.sdf import (
+    bbox_mask,
+    collision_loss,
+    gather_rows,
+    nearest_vertex,
+    topk_scene_points,
+    topk_scene_points_near_body,
+)
+from ..diffusion.sampler import StatefulGuidanceFn
 from ..geometry import perspective_projection, rot6d_to_rotmat
 from ..nn import (
     FCHeadBeta,
@@ -40,7 +54,13 @@ from ..nn import (
     transl_enc,
 )
 from ..nn.gcn import ModulatedGraphConv
-from ..smpl import SMPLModel, lbs
+from ..smpl import (
+    SMPLModel,
+    lbs,
+    lbs_apply_select,
+    lbs_transforms,
+    vertex_normals,
+)
 from ..smpl import constants as C
 
 
@@ -301,6 +321,127 @@ def make_denoise_fn(model: EgoHMR, cfg: EgoHMRConfig, cond: Condition, *,
         return out.reshape(B, 24 * 6)
 
     return fn
+
+
+# --------------------------------------------------------------- guidance
+# gradient scale per joint: only the pelvis-adjacent leg joints keep
+# gradient, [1, 2] at x1 and [4, 5, 7, 8, 10, 11] at x2; the pelvis and the
+# upper body get none.
+_GUIDE_JOINT_SCALE = np.zeros((24,), np.float32)
+_GUIDE_JOINT_SCALE[[1, 2]] = 1.0
+_GUIDE_JOINT_SCALE[[4, 5, 7, 8, 10, 11]] = 2.0
+
+
+def make_guidance_fn(
+    model: EgoHMR,
+    cfg: EgoHMRConfig,
+    smpl: SMPLModel,
+    cond: Condition,
+    stats: BodyRepStats,
+    *,
+    max_scene_points: Optional[int] = 4096,
+    per_step_points: Optional[int] = 1024,
+    selection_refresh_every: int = 1,
+):
+    """Collision-score gradient w.r.t. x_t, batched with static shapes:
+    returns fn(x_t [B, 144], t [B]) -> grad [B, 144]. `model` and `cfg` are
+    unused (guidance has no parameters) and kept for the JAX package's
+    signature.
+
+    The body is posed without translation and compared against the
+    canonicalised scene cloud `cond.scene_pcd`, which must be f32.
+
+    `max_scene_points`: static top-K pre-filter of the scene points nearest
+    the canonical origin, computed once per sampling run. Exact when every
+    point within the body's reach fits in K; None disables it.
+
+    `per_step_points`: second cap inside each guided step, the K2 points
+    nearest the current posed body's bbox. The loss scores bbox-masked
+    points only, so it is exact whenever the bbox's points fit in K2. It
+    cuts the per-step nearest-vertex search, the step's largest cost, by
+    K/K2. None disables it.
+
+    Each guided step has two passes. `selection` is gradient-free: full
+    LBS, vertex normals, the per-step cap, the bbox mask, the nearest
+    vertex of every kept point (kernel K2 on the card) and the
+    inside/outside sign from that vertex's normal. `neg_collision` is the
+    differentiable one: only the selected vertices are re-posed
+    (`lbs_apply_select`), so the backward is gathers from constant tables
+    and matmuls over K2 points. That is exact: the argmin index and the
+    sign are piecewise constant in x_t, so differentiating the
+    selected-vertex distance alone is the full gradient. The gradient is
+    taken under `torch.enable_grad()` on a detached copy of x_t, so the
+    function works inside a `torch.no_grad()` caller and builds no graph
+    outside `grad_given`.
+
+    `selection_refresh_every`: 1 recomputes the selection on every guided
+    step (exact). N > 1 returns a `StatefulGuidanceFn`: the sampler carries
+    (pts, mask, nn_idx, sign) across guided steps and refreshes them on
+    every N-th; in between, the selection is that of a body a few steps
+    old, an approximation."""
+    dev = cond.scene_pcd.device
+    # constants go to the device once, here, not inside a guided step
+    scale = torch.tensor(_GUIDE_JOINT_SCALE, device=dev)[None, :, None]  # [1,24,1]
+    betas = cond.pred_betas.detach()
+    scene = topk_scene_points(cond.scene_pcd.detach(), max_scene_points)
+    do_cap = per_step_points is not None and per_step_points < scene.shape[1]
+    if do_cap:
+        # fixed pre-shuffle: the per-step top-K ranks every in-bbox point at
+        # distance 0, so ties break by array index, and on spatially ordered
+        # crops that evicts with a spatial bias once the bbox holds more
+        # than K2 points. A fixed permutation makes the tie-break unbiased
+        # and keeps it deterministic across runs.
+        perm = np.random.RandomState(0).permutation(scene.shape[1])
+        scene = scene[:, torch.tensor(perm, device=dev)]
+    K2 = per_step_points if do_cap else scene.shape[1]
+
+    def rotmats(x_t: torch.Tensor) -> torch.Tensor:
+        pose6d = x_t * stats.std + stats.mean
+        return rot6d_to_rotmat(pose6d, "diffusion").reshape(-1, 24, 3, 3)
+
+    @torch.no_grad()
+    def selection(x_t: torch.Tensor):
+        """Gradient-free full pass: posed mesh -> (pts, mask, nn_idx, sign)."""
+        rotmat = rotmats(x_t)
+        verts = lbs(smpl, betas, rotmat[:, :1], rotmat[:, 1:],
+                    pose2rot=False).vertices
+        normals = vertex_normals(verts, smpl.faces)
+        pts = topk_scene_points_near_body(scene, verts, K2) if do_cap else scene
+        mask = bbox_mask(pts, verts)
+        idx = nearest_vertex(pts, verts).idx
+        sign = torch.sign(torch.sum(
+            (pts - gather_rows(verts, idx)) * gather_rows(normals, idx), dim=-1))
+        sign = torch.where(sign == 0, torch.ones_like(sign), sign)
+        return pts, mask, idx, sign
+
+    def neg_collision(x_t: torch.Tensor, sel) -> torch.Tensor:
+        # differentiable selective pass: re-pose only the selected vertices
+        pts, mask, idx, sign = sel
+        _, pf, _, rel = lbs_transforms(smpl, betas, rotmats(x_t))
+        v_near = lbs_apply_select(smpl, betas, pf, rel, idx)
+        sdf = sign * torch.linalg.norm(pts - v_near, dim=-1)
+        return -torch.mean(collision_loss(sdf, mask.to(sdf.dtype)))
+
+    def grad_given(x_t: torch.Tensor, sel) -> torch.Tensor:
+        with torch.enable_grad():
+            x = x_t.detach().requires_grad_(True)
+            (grad,) = torch.autograd.grad(neg_collision(x, sel), x)
+        return (grad.reshape(-1, 24, 6) * scale).reshape(x_t.shape[0], 144)
+
+    if selection_refresh_every <= 1:
+        def fn(x_t: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+            return grad_given(x_t, selection(x_t))
+
+        return fn
+
+    def init_state(x: torch.Tensor):
+        return None  # the first guided step always refreshes
+
+    def sfn(x_t: torch.Tensor, t: torch.Tensor, state, refresh: bool):
+        sel = selection(x_t) if refresh else state
+        return grad_given(x_t, sel), sel
+
+    return StatefulGuidanceFn(init_state, sfn, selection_refresh_every)
 
 
 @torch.no_grad()

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from .data import pad_batch, to_torch
-from .diffusion import DiffusionSchedule
+from .diffusion import DiffusionSchedule, GuidanceConfig
 from .eval.pipeline import sample_bodies
 from .models import BodyRepStats, EgoHMR, EgoHMRConfig
 from .nn import cast_params_bf16
@@ -50,7 +50,9 @@ class Predictor:
 
     Every request runs the whole pipeline: conditioning once per image
     (ResNet + the scene PointNet + heads), `num_samples` bodies per image
-    through DDIM, SMPL skinning and reprojection. `pointnet_impl` overrides
+    through `sampler` ("ddim" or "ddpm") over `schedule`, with the
+    collision-score guidance when `with_guidance`, SMPL skinning and
+    reprojection. `pointnet_impl` overrides
     `cfg.pointnet_impl`: the scene encoder is kernel K1 by default
     ("fused"), or plain torch matmuls ("xla")."""
 
@@ -70,6 +72,9 @@ class Predictor:
         output_keys=_OUTPUT_KEYS,
         pointnet_impl: str = "fused",
         pack_dtype: torch.dtype = torch.float32,
+        sampler: str = "ddim",
+        with_guidance: bool = False,
+        guidance: GuidanceConfig = GuidanceConfig(),
     ):
         self.cfg = replace(cfg, pointnet_impl=pointnet_impl)
         self.device = torch.device(device)
@@ -78,6 +83,9 @@ class Predictor:
         self.bf16 = bf16
         self.max_inflight = max(1, int(max_inflight))
         self.pack_dtype = pack_dtype
+        self.sampler = sampler
+        self.with_guidance = with_guidance
+        self.guidance = guidance
         self._output_keys = tuple(output_keys)
         if bf16:
             model = cast_params_bf16(model)
@@ -91,8 +99,9 @@ class Predictor:
     def _run(self, batch: Dict, generator: torch.Generator) -> torch.Tensor:
         outs, _ = sample_bodies(
             self._model, self.cfg, self._smpl, self._stats, self._schedule,
-            batch, generator, self.num_samples, bf16=self.bf16,
-            params_precast=self.bf16)
+            batch, generator, self.num_samples, sampler=self.sampler,
+            with_guidance=self.with_guidance, guidance=self.guidance,
+            bf16=self.bf16, params_precast=self.bf16)
         missing = [k for k in self._output_keys if k not in outs]
         if missing:
             raise ValueError(f"output_keys {missing} not produced by the "

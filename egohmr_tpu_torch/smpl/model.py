@@ -6,7 +6,8 @@ keep the JAX package's `precision="highest"` numerics.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -34,6 +35,13 @@ class SMPLModel(NamedTuple):
         return SMPLModel(*(t.to(device) for t in self))
 
 
+@functools.lru_cache(maxsize=None)
+def _bottom_row(device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """The [0, 0, 0, 1] row of a homogeneous transform, on the device once
+    (a copy from pageable host memory per call would stall the stream)."""
+    return torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dtype, device=device)
+
+
 class SMPLOutput(NamedTuple):
     vertices: torch.Tensor     # [B, V, 3]
     joints: torch.Tensor       # [B, 45, 3]
@@ -47,13 +55,14 @@ def _rigid_transform(rot_mats: torch.Tensor, joints: torch.Tensor,
 
     rot_mats [B, 24, 3, 3], joints [B, 24, 3] rest pose, parents_dev the
     parent table on the joints' device. Returns (posed_joints [B, 24, 3],
-    rel_transforms [B, 24, 4, 4])."""
+    rel_transforms [B, 24, 4, 4]). Built from concatenations only, with no
+    in-place write, so autograd differentiates it w.r.t. both inputs."""
     parents = C.PARENTS.tolist()
-    rel_joints = joints.clone()
-    rel_joints[:, 1:] -= joints[:, parents_dev[1:]]
+    rel_joints = torch.cat([joints[:, :1],
+                            joints[:, 1:] - joints[:, parents_dev[1:]]], dim=1)
     top = torch.cat([rot_mats, rel_joints[..., None]], dim=-1)       # [B,24,3,4]
-    transforms_mat = torch.nn.functional.pad(top, (0, 0, 0, 1))       # [B,24,4,4]
-    transforms_mat[..., 3, 3] = 1.0
+    bottom = _bottom_row(top.device, top.dtype).expand(*top.shape[:2], 1, 4)
+    transforms_mat = torch.cat([top, bottom], dim=-2)                 # [B,24,4,4]
 
     chain = [transforms_mat[:, 0]]
     for k in range(1, len(parents)):
@@ -61,11 +70,29 @@ def _rigid_transform(rot_mats: torch.Tensor, joints: torch.Tensor,
     chain = torch.stack(chain, dim=1)
 
     posed_joints = chain[:, :, :3, 3]
-    joints_hom = torch.cat([joints, torch.zeros_like(joints[..., :1])], dim=-1)
-    correction = torch.einsum("bkij,bkj->bki", chain, joints_hom)
-    rel = chain.clone()
-    rel[:, :, :3, 3] -= correction[..., :3]
-    return posed_joints, rel
+    # subtract the skeleton-induced translation of the rest joints: only
+    # the translation column of the top three rows changes
+    correction = torch.einsum("bkij,bkj->bki", chain[:, :, :3, :3], joints)
+    rel_top = torch.cat([chain[:, :, :3, :3],
+                         (posed_joints - correction)[..., None]], dim=-1)
+    return posed_joints, torch.cat([rel_top, chain[:, :, 3:]], dim=-2)
+
+
+def lbs_transforms(model: SMPLModel, betas: torch.Tensor, rot_mats: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The pose-dependent core shared by full and selective skinning.
+
+    rot_mats [B, 24, 3, 3]. Returns (v_shaped [B, V, 3], pose_feature
+    [B, 207], posed_joints [B, 24, 3], rel_transforms [B, 24, 4, 4])."""
+    B = betas.shape[0]
+    v_shaped = model.v_template[None] + torch.einsum(
+        "bl,vcl->bvc", betas, model.shapedirs)
+    joints_rest = torch.einsum("jv,bvc->bjc", model.j_regressor, v_shaped)
+    ident = torch.eye(3, dtype=rot_mats.dtype, device=rot_mats.device)
+    pose_feature = (rot_mats[:, 1:] - ident).reshape(B, -1)          # [B, 207]
+    posed_joints, rel_transforms = _rigid_transform(rot_mats, joints_rest,
+                                                    model.parents)
+    return v_shaped, pose_feature, posed_joints, rel_transforms
 
 
 def lbs(
@@ -89,13 +116,8 @@ def lbs(
         rot_mats = torch.cat([global_orient.reshape(B, 1, 3, 3),
                               body_pose.reshape(B, 23, 3, 3)], dim=1)
 
-    v_shaped = model.v_template[None] + torch.einsum(
-        "bl,vcl->bvc", betas, model.shapedirs)
-    joints_rest = torch.einsum("jv,bvc->bjc", model.j_regressor, v_shaped)
-    ident = torch.eye(3, dtype=rot_mats.dtype, device=rot_mats.device)
-    pose_feature = (rot_mats[:, 1:] - ident).reshape(B, -1)          # [B, 207]
-    posed_joints, rel_transforms = _rigid_transform(rot_mats, joints_rest,
-                                                    model.parents)
+    v_shaped, pose_feature, posed_joints, rel_transforms = lbs_transforms(
+        model, betas, rot_mats)
 
     v_posed = v_shaped + torch.matmul(
         pose_feature, model.posedirs).reshape(B, -1, 3)
@@ -112,3 +134,52 @@ def lbs(
         posed_joints = posed_joints + t
     return SMPLOutput(vertices=verts, joints=joints45, full_pose=rot_mats,
                       joints_smpl=posed_joints)
+
+
+def lbs_apply_select(model: SMPLModel, betas: torch.Tensor,
+                     pose_feature: torch.Tensor, rel_transforms: torch.Tensor,
+                     idx: torch.Tensor) -> torch.Tensor:
+    """Pose only the template vertices `idx` [B, K] (duplicates allowed).
+
+    Exactly the math of `lbs(...).vertices[b, idx[b]]`, but every gather is
+    from a constant table (v_template, shapedirs, posedirs, lbs_weights), so
+    the backward is gathers and matmuls over K: no [B, K] -> [B, V, 3]
+    scatter-add (whose atomics would sum in an order that changes from run
+    to run, since many points share a nearest vertex) and no V-sized
+    skinning backward. This is the form for loss terms that touch a few
+    vertices per point (collision guidance).
+
+    The JAX package chunks the gather of the pose blendshapes over K to
+    bound a [B, K, 3, 207] f32 buffer; the chunking is dropped here: the
+    buffer is 163 MB at B=64, K=1024, autograd keeps it until the backward
+    either way, and the card has room for it."""
+    idx = idx.detach()
+    n_feat = model.posedirs.shape[0]
+    # the pose blendshapes regrouped per vertex: rows to gather, [V, 3, 207]
+    posedirs_v = model.posedirs.t().reshape(model.num_vertices, 3, n_feat)
+
+    vt_sel = model.v_template[idx]                          # [B, K, 3]
+    sd_sel = model.shapedirs[idx]                           # [B, K, 3, L]
+    v_shaped_sel = vt_sel + torch.einsum("bl,bkcl->bkc", betas, sd_sel)
+    v_posed_sel = v_shaped_sel + torch.einsum(
+        "bf,bkcf->bkc", pose_feature, posedirs_v[idx])     # [B, K, 3, 207]
+
+    w_sel = model.lbs_weights[idx]                          # [B, K, 24]
+    t_sel = torch.einsum("bkw,bwij->bkij", w_sel, rel_transforms)
+    v_hom = torch.cat([v_posed_sel, torch.ones_like(v_posed_sel[..., :1])], dim=-1)
+    return torch.einsum("bkij,bkj->bki", t_sel, v_hom)[..., :3]
+
+
+def vertex_normals(vertices: torch.Tensor, faces: torch.Tensor) -> torch.Tensor:
+    """Area-weighted per-vertex normals. vertices [B, V, 3]; faces [F, 3].
+
+    Each face's (area-weighted) normal is added onto its three vertices
+    with `index_add_`. Forward only in practice: the normals enter the
+    collision terms through a sign."""
+    faces = faces.long()
+    v0, v1, v2 = (vertices[:, faces[:, i]] for i in range(3))
+    fn = torch.linalg.cross(v1 - v0, v2 - v0, dim=-1)       # [B, F, 3]
+    n = torch.zeros_like(vertices)
+    for i in range(3):
+        n = n.index_add(1, faces[:, i], fn)
+    return n / torch.linalg.norm(n, dim=-1, keepdim=True).clamp(min=1e-12)

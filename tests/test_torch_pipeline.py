@@ -1,5 +1,6 @@
-"""Port parity of the slice as a whole: `sample_bodies` (unguided DDIM-5)
-and `serving.Predictor` against egohmr_tpu, and the import rule."""
+"""Port parity of the slices as a whole: `sample_bodies` (unguided DDIM-5,
+guided DDIM-5 and guided DDPM-50) and `serving.Predictor` against
+egohmr_tpu, and the import rule."""
 import ast
 import os
 import subprocess
@@ -11,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from egohmr_tpu.diffusion import GuidanceConfig as JGuidanceConfig
 from egohmr_tpu.diffusion import make_schedule as j_make_schedule
 from egohmr_tpu.eval.pipeline import sample_bodies as j_sample_bodies
 from egohmr_tpu.models import BodyRepStats as JStats
@@ -20,7 +22,8 @@ from egohmr_tpu.serving import MESH_OUTPUT_KEYS as J_MESH_KEYS
 from egohmr_tpu.serving import Predictor as JPredictor
 from egohmr_tpu.smpl import make_synthetic_model as j_make_smpl
 from egohmr_tpu_torch.data import synthetic_batch, to_torch
-from egohmr_tpu_torch.diffusion import make_schedule
+from egohmr_tpu_torch.diffusion import GuidanceConfig, make_schedule
+from egohmr_tpu_torch.diffusion import sampler as tsampler
 from egohmr_tpu_torch.eval import sample_bodies, tile_condition
 from egohmr_tpu_torch.models import BodyRepStats
 from egohmr_tpu_torch.serving import MESH_OUTPUT_KEYS, Predictor
@@ -69,7 +72,7 @@ def test_sample_bodies_f32_matches_jax(setup):
     jout, x_T = _jax_run(setup, jax.random.PRNGKey(11))
     _, (model, tcfg, smpl, stats, sched), batch = setup
     out, _ = sample_bodies(model, tcfg, smpl, stats, sched, to_torch(batch, "cpu"),
-                           None, S, noise=torch.tensor(x_T))
+                           None, S, sampler="ddim", noise=torch.tensor(x_T))
     for k in KEYS:
         assert out[k].shape == jout[k].shape, k
         np.testing.assert_allclose(to_np(out[k]), np.asarray(jout[k]), rtol=1e-4,
@@ -86,11 +89,98 @@ def test_sample_bodies_bf16_close_to_jax_f32(setup, impl):
     jout, x_T = _jax_run(setup, jax.random.PRNGKey(12))
     _, (model, tcfg, smpl, stats, sched), batch = setup
     out, _ = sample_bodies(model, dataclasses.replace(tcfg, pointnet_impl=impl), smpl,
-                           stats, sched, to_torch(batch, "cpu"), None, S, bf16=True,
-                           noise=torch.tensor(x_T))
+                           stats, sched, to_torch(batch, "cpu"), None, S, sampler="ddim",
+                           bf16=True, noise=torch.tensor(x_T))
     got = to_np(out["pred_keypoints_3d"])
     assert out["pred_keypoints_3d"].dtype == torch.float32 and np.isfinite(got).all()
     assert np.mean(np.abs(got - np.asarray(jout["pred_keypoints_3d"]))) < 0.05
+
+
+def _first_then_zeros(x_T):
+    """A stand-in for `jax.random.normal`: the first draw (x_T, taken
+    outside the scan) is `x_T`, every later one (the per-step noise) zero."""
+    calls = []
+
+    def normal(key, shape, dtype=jnp.float32):
+        calls.append(shape)
+        if len(calls) == 1:
+            assert tuple(shape) == x_T.shape
+            return jnp.asarray(x_T, dtype)
+        return jnp.zeros(shape, dtype)
+
+    return normal
+
+
+@pytest.mark.parametrize("sampler,respacing", [("ddim", "ddim5"), ("ddpm", "")])
+def test_guided_sample_bodies_f32_matches_jax(setup, monkeypatch, sampler, respacing):
+    """`sample_bodies(with_guidance=True)` in f32, guided DDIM-5 and guided
+    zero-noise DDPM-50, same weights, batch and x_T: rtol/atol 1e-4 on
+    keypoints, vertices and betas, as for the unguided path. The guidance
+    weights are raised on both sides until the guided bodies differ from
+    the unguided ones by over ten times that bar."""
+    (jcfg, jp, jsmpl, jstats, _), (model, tcfg, smpl, stats, _), batch = setup
+    x_T = np.random.RandomState(21).randn(2 * S, 144).astype(np.float32)
+    weights = dict(cond_grad_weight=60.0, ddim_scale=30.0)
+    monkeypatch.setattr(jax.random, "normal", _first_then_zeros(x_T))
+    monkeypatch.setattr(tsampler, "_step_noise", lambda x, g: torch.zeros_like(x))
+    jout, _ = j_sample_bodies(jp, jcfg, jsmpl, jstats, j_make_schedule(50, "cosine", respacing),
+                              to_jax(batch), jax.random.PRNGKey(0), S, sampler=sampler,
+                              with_guidance=True, guidance=JGuidanceConfig(**weights))
+    sched = make_schedule(50, "cosine", respacing)
+    run = lambda **kw: sample_bodies(model, tcfg, smpl, stats, sched, to_torch(batch, "cpu"),  # noqa: E731
+                                     torch.Generator(), S, sampler=sampler,
+                                     noise=torch.tensor(x_T), **kw)[0]
+    out = run(with_guidance=True, guidance=GuidanceConfig(**weights))
+    free = run()
+    assert (out["pred_vertices"] - free["pred_vertices"]).abs().max() > 1e-3
+    for k in KEYS:
+        assert out[k].shape == jout[k].shape and not out[k].requires_grad, k
+        np.testing.assert_allclose(to_np(out[k]), np.asarray(jout[k]), rtol=1e-4,
+                                   atol=1e-4, err_msg=k)
+
+
+def test_sample_bodies_guidance_options(setup):
+    """The learned collision backends are not ported and say so; the two
+    option clash raises as in JAX; `guidance_refresh_every` runs; the bf16
+    path hands the guidance an f32 condition."""
+    _, (model, tcfg, smpl, stats, sched), batch = setup
+    b = to_torch(batch, "cpu")
+    run = lambda **kw: sample_bodies(model, tcfg, smpl, stats, sched, b,  # noqa: E731
+                                     torch.Generator().manual_seed(0), 1, sampler="ddim", **kw)
+    for backend in ("occupancy", "volsdf"):
+        with pytest.raises(NotImplementedError, match="slice 7"):
+            run(with_guidance=True, collision_backend=backend)
+        with pytest.raises(ValueError, match="sdf-backend knob"):
+            run(with_guidance=True, collision_backend=backend, guidance_refresh_every=2)
+    with pytest.raises(ValueError, match="unknown collision_backend"):
+        run(with_guidance=True, collision_backend="coap")
+    exact = run(with_guidance=True)[0]["pred_pose_6d"]
+    reuse = run(with_guidance=True, guidance_refresh_every=2)[0]["pred_pose_6d"]
+    assert torch.isfinite(reuse).all() and (reuse - exact).abs().max() < 1e-2
+    out, cond = run(with_guidance=True, bf16=True)
+    assert cond.scene_pcd.dtype == torch.float32 and cond.pred_betas.dtype == torch.float32
+    assert out["pred_pose_6d"].dtype == torch.float32 and torch.isfinite(out["pred_pose_6d"]).all()
+
+
+@pytest.mark.parametrize("sampler,respacing", [("ddim", "ddim5"), ("ddpm", "")])
+def test_guided_predictor_on_cpu(setup, sampler, respacing):
+    """A guided `Predictor` on the CPU, bf16 as served: finite outputs,
+    padded rows trimmed, the short request equal to the leading rows of the
+    full one, and different from the unguided Predictor's bodies."""
+    _, (model, tcfg, smpl, stats, _), _ = setup
+    sched = make_schedule(50, "cosine", respacing)
+    kw = dict(device="cpu", batch_size=4, num_samples=1, sampler=sampler)
+    guided = Predictor(model, tcfg, smpl, stats, sched, with_guidance=True,
+                       guidance=GuidanceConfig(cond_grad_weight=60.0, ddim_scale=30.0), **kw)
+    free = Predictor(model, tcfg, smpl, stats, sched, **kw)
+    full = _mini(4, 3)
+    short = {k: ({kk: vv[:3] for kk, vv in v.items()} if isinstance(v, dict) else v[:3])
+             for k, v in full.items()}
+    a, b, c = guided(full, seed=2), guided(short, seed=2), free(full, seed=2)
+    assert b["pred_pose_6d"].shape == (3, 1, 144)
+    assert all(np.isfinite(v).all() for v in a.values())
+    np.testing.assert_allclose(b["pred_pose_6d"], a["pred_pose_6d"][:3], rtol=2e-3, atol=2e-3)
+    assert np.abs(a["pred_pose_6d"] - c["pred_pose_6d"]).max() > 1e-3
 
 
 @pytest.fixture(scope="module")
