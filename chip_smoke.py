@@ -6,10 +6,12 @@ Phases (any failure exits non-zero):
   1. device  — require CUDA; print the card's name and power limit
   2. build   — compile every kernel from csrc/ (one nvcc per source, all at
                once)
-  3. kernel  — hold K1 (the fused PointNet) and K2 (the nearest-vertex
-               argmin) to their plain PyTorch versions on the card at the
-               shapes the main paths give them, and time kernel, plain
-               version and, for K2, the one-call library route
+  3. kernel  — hold K1 (the fused PointNet), K2 (the nearest-vertex
+               argmin) and K3 (the matmul-rate probe, all six variants) to
+               their plain PyTorch versions on the card at the shapes the
+               main paths give them, and time kernel, plain version and,
+               where there is one, the one-call library route; then run
+               the probe proper (`tools/probe_int8_mma.py`, its defaults)
   4. serve   — serve unguided requests at full width (ResNet-50, 20k scene
                points, 6890-vertex synthetic SMPL, DDIM-5, bf16, random
                weights from a seed) through `serving.Predictor`, counting
@@ -22,6 +24,18 @@ Phases (any failure exits non-zero):
                weights, that the guided bodies collide less than the
                unguided ones of the same seed; then time the parts of a
                guided request on their own
+  6. eval    — run the evaluation CLI (`eval/test_egohmr.py`) at the same
+               width, 8 images x 5 samples x 2 batches of synthetic data:
+               unguided DDIM-5 and the CLI's own defaults (guided DDPM-50),
+               bf16 with K1, counting K1's and K2's launches (K1 once and K2
+               twice per batch in `evaluate_batch`, plus one K2 per guided
+               step), on data with every other body moved to the image's edge
+               so that the keys over invisible joints average over dozens of
+               them; hold K2 to its plain version on the bodies and scenes
+               `evaluate_batch` gives it, and each summary and its NaN pattern
+               to the f32 plain run of the same images and noise on the card
+               (error metrics within 5 mm); show where the bf16 run's larger
+               diversity comes from; time `evaluate_batch` and K2 inside it
 Before the last line come a JSON object with one entry per kernel and the
 card's name and power limit; the last line is {"ok": true, "device":
 {...}}. Nothing runs without a GPU.
@@ -38,8 +52,9 @@ import numpy as np
 import torch
 
 B_TIME, P_FULL, V_FULL = 64, 20000, 6890
-# published peaks of one H100 SXM: bf16 tensor cores, f32 CUDA cores, HBM3
-PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+# published peaks of one H100 SXM: bf16 and int8 tensor cores, f32 CUDA
+# cores, HBM3
+PEAK_BF16, PEAK_INT8, PEAK_F32, PEAK_BYTES = 989e12, 1979e12, 67e12, 3.35e12
 
 
 def log(phase: str, msg: str) -> None:
@@ -88,7 +103,7 @@ def phase_device() -> str:
 def phase_build() -> None:
     from egohmr_tpu_torch import _build
 
-    names = ["pointnet_fused", "nearest_vertex"]
+    names = ["pointnet_fused", "nearest_vertex", "probe_mma"]
     t0 = time.perf_counter()
     _build.build(names)
     log("build", f"{', '.join(n + '.cu' for n in names)} built for sm_90a in "
@@ -117,9 +132,9 @@ def phase_kernel_k1(cfg) -> dict:
                        seed=1).cuda().eval()
     g = torch.Generator().manual_seed(2)
     max_err = 0.0
-    # the main path's shape, and a small ragged one (neither P is a
-    # multiple of the 64-point tile)
-    for B, P in ((B_TIME, P_FULL), (3, 4099)):
+    # the serving paths' shape, the evaluation path's (a batch of 8 images),
+    # and a small ragged one (no P is a multiple of the 64-point tile)
+    for B, P in ((B_TIME, P_FULL), (8, P_FULL), (3, 4099)):
         pts = torch.randn(B, P, 3, generator=g).cuda()
         got = k1.pointnet_fused_feature(enc, pts)
         torch.cuda.synchronize()
@@ -173,12 +188,24 @@ def points_near_body(B: int, P: int, V: int, seed: int):
     return pts.cuda(), verts.cuda()
 
 
-def phase_kernel_k2() -> dict:
-    from egohmr_tpu_torch.collision import knn as k2
-
-    def dist(pts, verts, idx):
+def k2_agrees(pts, verts, got, ref):
+    """K2's indices against the plain version's: the count that differ, the
+    largest gap between the true distances to the two picks, and whether
+    every gap is within rtol 1e-5, atol 1e-6 (a near-tie that the kernel's
+    f32 order resolves the other way)."""
+    def dist(idx):
         v = torch.gather(verts, 1, idx[..., None].expand(-1, -1, 3))
         return torch.linalg.norm(pts - v, dim=-1)
+
+    d_got, d_ref = dist(got), dist(ref)
+    gap = (d_got - d_ref).abs()
+    in_range = 0 <= int(got.min()) and int(got.max()) < verts.shape[1]
+    ok = bool((gap <= 1e-6 + 1e-5 * d_ref).all()) and in_range and got.dtype == torch.int64
+    return int((got != ref).sum()), gap.max().item(), ok
+
+
+def phase_kernel_k2() -> dict:
+    from egohmr_tpu_torch.collision import knn as k2
 
     def library(pts, verts):
         # the one-call route: a batched f32 product, then argmin
@@ -195,9 +222,11 @@ def phase_kernel_k2() -> dict:
     # the shapes the callers give it: guided DDIM-5 (batch 64) and guided
     # DDPM-50 (batch 16) search a body's vertices from 1024 scene points;
     # the metrics search them from the whole cloud, and the cloud from the
-    # body (chamfer distance, contact); then a ragged and a tied case
+    # body (chamfer distance, contact), at 16 clouds and at the evaluation
+    # path's 8 images x 5 samples; then a ragged and a tied case
     shapes = {"guided": (B_TIME, 1024, V_FULL), "guided DDPM": (16, 1024, V_FULL),
               "metric": (16, P_FULL, V_FULL), "cloud": (16, V_FULL, P_FULL),
+              "eval metric": (40, P_FULL, V_FULL), "eval cloud": (40, V_FULL, P_FULL),
               "ragged": (3, 777, 431), "duplicated": (2, 1500, 5000)}
     max_err, n_differ, timed = 0.0, 0, {}
     for name, (B, P, V) in shapes.items():
@@ -210,16 +239,12 @@ def phase_kernel_k2() -> dict:
             fail(f"K2 was not launched at the {name} shape")
         torch.cuda.synchronize()
         ref = k2.nearest_vertex_idx_reference(pts, verts)
-        differ = int((got != ref).sum())
-        d_got, d_ref = dist(pts, verts, got), dist(pts, verts, ref)
-        err = (d_got - d_ref).abs().max().item()
-        ok = bool(((d_got - d_ref).abs() <= 1e-6 + 1e-5 * d_ref).all())
-        in_range = 0 <= int(got.min()) and int(got.max()) < V
+        differ, err, ok = k2_agrees(pts, verts, got, ref)
         if name == "duplicated":
             ok = ok and differ == 0 and int(got.max()) < V // 2
         log("kernel", f"K2 vs plain, {name} shape B={B}, P={P}, V={V}: {differ} of "
                       f"{B * P} indices differ, max |d_kernel - d_plain| {err:.3e}")
-        if not (ok and in_range and got.dtype == torch.int64):
+        if not ok:
             fail(f"K2 disagrees with its plain version at the {name} shape")
         max_err, n_differ = max(max_err, err), n_differ + differ
         if name in ("guided", "metric", "cloud"):
@@ -243,6 +268,105 @@ def phase_kernel_k2() -> dict:
             "replaces": "egohmr_tpu/collision/knn_pallas.py:29",
             "max_abs_err": max_err, "n_idx_differ": n_differ, **timed["guided"],
             "metric_shape": timed["metric"], "cloud_shape": timed["cloud"]}
+
+
+def phase_kernel_k3() -> dict:
+    from egohmr_tpu_torch.tools import probe_int8_mma as k3
+
+    dev = torch.device("cuda")
+    G = 32
+    inputs = k3.make_inputs(seed=0, device=dev)
+    max_err = 0.0
+    for name in k3.VARIANTS:
+        ops = list(inputs[name])
+        if name.startswith("B"):
+            ops[0] = ops[0].clone()
+            ops[0][5, 7] = 127  # the perturbed variant's add wraps here
+        for r in (1, 2, 7):
+            before = k3.launches
+            got = k3.run(name, r, G, *ops)
+            if k3.launches != before + 1:
+                fail(f"K3 {name} was not launched")
+            torch.cuda.synchronize()
+            ref = k3.plain(name, r, G, *ops)
+            if got.shape != (G, 1, k3.N) or got.dtype != ref.dtype:
+                fail(f"K3 {name}: result {tuple(got.shape)} {got.dtype}")
+            err = (got.double() - ref.double()).abs().max().item()
+            if got.dtype == torch.int32:
+                ok, how = torch.equal(got, ref), "equal element for element"
+            elif name.startswith("A"):
+                ok = bool(torch.isclose(got, ref, rtol=1e-4, atol=1e-4).all())
+                how = "within rtol 1e-4 of the plain f32 sum"
+                max_err = max(max_err, err)
+            else:
+                close = torch.isclose(got, ref, rtol=1e-5, atol=1e-7).float().mean().item()
+                ok = close >= 0.999 and bool(torch.isclose(got, ref, rtol=2e-2, atol=1e-3).all())
+                how = (f"{close * 100:.3f}% of elements within rtol 1e-5 (bar 99.9%; the "
+                       "rest within one quantisation step, rtol 2e-2)")
+                max_err = max(max_err, err)
+            log("kernel", f"K3 {name} vs plain, M,K,N={k3.M},{k3.K},{k3.N}, G={G}, R={r}: "
+                          f"max abs err {err:.3e}, {how}")
+            if not ok:
+                fail(f"K3 {name} disagrees with its plain version at R={r}")
+
+    # the probe proper, through its entry point: this is K3's main path
+    k3.launches = 0
+    results = k3.main([])
+    launches = k3.launches
+    torch.cuda.synchronize()
+    for name in k3.VARIANTS:
+        res = results[name]
+        if res.get("hoisted"):
+            log("kernel", f"K3 probe {name}: hoisted (t(R1) {res['t_r1_ms']} ms, t(R2) "
+                          f"{res['t_r2_ms']} ms): no rate")
+            continue
+        peak, unit = ((PEAK_INT8, "TOPS") if name in k3.INT8_VARIANTS else (PEAK_BF16, "TFLOP/s"))
+        share = k3.flop() / (res["us_per_matmul"] * 1e-6) / peak
+        log("kernel", f"K3 probe {name}: {res['us_per_matmul']} us per product, "
+                      f"{res['tflops']} {unit}, {res['pct_bf16_peak']}% of the bf16 peak, "
+                      f"{res['pct_int8_peak']}% of the int8 peak")
+        if share > 1.0:
+            fail(f"K3 probe {name} reads {share * 100:.1f}% of its peak")
+    log("kernel", f"K3 probe: int8_speedup_pure {results.get('int8_speedup_pure')}, "
+                  f"int8_speedup_with_glue {results.get('int8_speedup_with_glue')}")
+    if "us_per_matmul" not in results["A_bf16"]:
+        fail("K3 probe: variant A_bf16 gave no rate")
+
+    # yardsticks, all per [M, K] x [K, N] product: the plain version's loop
+    # (two chain lengths, one chain), and the one PyTorch call that computes
+    # a single product, bf16 and int8, in a stream of 200 calls
+    x, w = inputs["A_bf16"]
+    xq, wq = inputs["B_int8"]
+    t_short = time_ms(lambda: k3.plain("A_bf16", 8, 1, x, w), reps=5)
+    t_long = time_ms(lambda: k3.plain("A_bf16", 40, 1, x, w), reps=5)
+    plain_ms = (t_long - t_short) / 32
+
+    def stream(fn, n=200):
+        return time_ms(lambda: [fn() for _ in range(n)], reps=5) / n
+
+    lib_bf16 = stream(lambda: torch.matmul(x, w))
+    lib_int8 = stream(lambda: torch._int_mm(xq, wq))
+    ms = results["A_bf16"]["us_per_matmul"] * 1e-3
+    # a launch reads x and w once and writes out once, whatever R: per
+    # product that is next to nothing, and the products bound it
+    r2 = 160
+    launch_bytes = k3.M * k3.K * 2 + k3.K * k3.N * 2 + G * k3.N * 4
+    b = bound(float(k3.flop()), PEAK_BF16, launch_bytes / (G * r2))
+    log("kernel", f"K3 per product: kernel (A_bf16) {ms:.6f} ms, plain loop {plain_ms:.6f} ms, "
+                  f"torch.matmul bf16 {lib_bf16:.6f} ms, torch._int_mm {lib_int8:.6f} ms, "
+                  f"bound {b['bound_ms']:.6f} ms bf16 / "
+                  f"{k3.flop() / PEAK_INT8 * 1e3:.6f} ms int8 by operations")
+    return {"name": "probe_mma", "route": "cuda",
+            "source": "egohmr_tpu_torch/csrc/probe_mma.cu",
+            "replaces": "tools/probe_int8_mxu.py:168",
+            "launches": launches, "max_abs_err": max_err,
+            "unit": "per [2048,256]x[256,256] product, variant A_bf16",
+            "ms": ms, "plain_ms": plain_ms, **b, "library_ms": lib_bf16,
+            "library_int8_ms": lib_int8,
+            "bound_int8_ms": k3.flop() / PEAK_INT8 * 1e3,
+            "variants": {n: results[n] for n in k3.VARIANTS},
+            "int8_speedup_pure": results.get("int8_speedup_pure"),
+            "int8_speedup_with_glue": results.get("int8_speedup_with_glue")}
 
 
 def phase_serve(cfg) -> int:
@@ -614,20 +738,209 @@ def breakdown(name: str, pred, batch, n_guided: int) -> None:
         log("guided", f"{name}: the profiler recorded no device time: not measured")
 
 
+EVAL_ARGS = ["--synthetic", "--batch_size", "8", "--num_samples", "5", "--num_batches", "2"]
+# name -> (the CLI's arguments, guided steps per batch)
+EVAL_RUNS = {"unguided DDIM-5": (["--timestep_respacing_eval", "ddim5",
+                                  "--with_coap_grad", "false"], 0),
+             "guided DDPM-50 (the CLI's defaults)": ([], 11)}
+F32_PLAIN = ["--bf16", "false", "--pointnet_impl", "xla"]
+MIN_INVISIBLE_JOINTS = 48  # below this the *_invis keys average too little to be held to a bar
+
+
+def edge_batch(batch_size: int, *, seed: int, device):
+    """`synthetic_batch` with every other body, and its scene with it, moved
+    to the right edge of the full image, so that the keys over invisible
+    joints and vertices average over many of them and over several images
+    (as it comes, the data has one such joint in two batches). The camera
+    (f = 1500, centre 960 of 1920) meets the edge at x / z = 0.64; the
+    synthetic body reaches further to +x than to -x, hence the offsets."""
+    from egohmr_tpu_torch.data import synthetic_batch, to_torch
+
+    batch = synthetic_batch(batch_size, seed=seed)
+    transl = batch["smpl_params"]["transl"]
+    offsets = np.linspace(-0.5, -0.2, len(transl[1::2]))
+    dx = (0.64 * transl[1::2, 2] + offsets - transl[1::2, 0]).astype(transl.dtype)
+    transl[1::2, 0] += dx
+    batch["scene_pcd_verts_full"][1::2, :, 0] += dx[:, None]
+    batch["keypoints_3d_full"][1::2, :, 0] += dx[:, None]
+    return to_torch(batch, device)
+
+
+def phase_eval(cfg) -> dict:
+    from egohmr_tpu_torch.collision import knn as k2
+    from egohmr_tpu_torch.diffusion import make_schedule
+    from egohmr_tpu_torch.eval import evaluate_batch, sample_bodies
+    from egohmr_tpu_torch.eval import test_egohmr as cli
+    from egohmr_tpu_torch.eval.metrics import diversity_std
+    from egohmr_tpu_torch.models import BodyRepStats
+    from egohmr_tpu_torch.nn import cast_params_bf16
+    from egohmr_tpu_torch.nn import pointnet_fused as k1
+    from egohmr_tpu_torch.smpl import make_synthetic_model
+
+    B, S, n_batches = 8, 5, 2
+    cli.synthetic_batch = edge_batch  # every run below, the f32 ones too, reads this data
+    dev = torch.device("cuda")
+    model32 = cli._synthetic_model(cfg).to(dev, memory_format=torch.channels_last).eval()
+    model = cast_params_bf16(model32)
+    smpl = make_synthetic_model(num_vertices=V_FULL, device=dev)
+    stats = BodyRepStats(torch.zeros(144, device=dev), torch.ones(144, device=dev))
+    schedule = make_schedule(50, "cosine", "ddim5").to(dev)
+    fused, plain = replace(cfg, pointnet_impl="fused"), replace(cfg, pointnet_impl="xla")
+
+    def sample(batch, bf16=True, schedule=schedule, **kw):
+        kw = {"sampler": "ddim", **kw}
+        return sample_bodies(model if bf16 else model32, fused if bf16 else plain, smpl, stats,
+                             schedule, batch, torch.Generator(device=dev).manual_seed(0), S,
+                             bf16=bf16, params_precast=bf16, **kw)
+
+    # the CLI's two batches: how many joints and vertices the *_invis keys
+    # average over; K2 against its plain version on the very bodies and
+    # scenes `evaluate_batch` hands it; and where the bf16 run's larger
+    # diversity comes from
+    n_invis, n_images = [0, 0], 0
+    for seed in (100, 101):
+        batch = edge_batch(B, seed=seed, device=dev)
+        outputs, cond = sample(batch)
+        res = evaluate_batch(fused, smpl, smpl, smpl, batch, outputs, cond)
+        n_invis[0] += int(res.invis_count.sum())
+        n_invis[1] += int(res.vertex_invis_count.sum())
+        n_images += int((res.invis_count > 0).sum())
+        verts = outputs["pred_vertices"].reshape(B * S, -1, 3).contiguous()
+        scene = cond.scene_pcd.repeat_interleave(S, dim=0).contiguous()
+        for what, (pts, vts) in {"scene -> body": (scene, verts),
+                                 "body -> scene": (verts, scene)}.items():
+            got = k2.nearest_vertex_idx(pts, vts)
+            differ, err, ok = k2_agrees(pts, vts, got, k2.nearest_vertex_idx_reference(pts, vts))
+            log("eval", f"K2 vs plain on batch {seed - 100}'s own bodies, {what} "
+                        f"[{pts.shape[0]}, {pts.shape[1]}] x {vts.shape[1]}: {differ} of "
+                        f"{got.numel()} indices differ, max |d_kernel - d_plain| {err:.3e}")
+            if not ok:
+                fail(f"K2 disagrees with its plain version inside evaluate_batch ({what})")
+        # the same x_T through the f32 plain model: the conditioning is
+        # shared by an image's S samples, so its rounding moves them together
+        # and leaves their spread alone; what differs from sample to sample
+        # is the bf16 denoiser's rounding of each x
+        out32, _ = sample(batch, bf16=False)
+        j16, j32 = (o["pred_keypoints_3d_full"][:, :, :24] for o in (outputs, out32))
+        j16, j32 = j16 - j16[:, :, :1], j32 - j32[:, :, :1]
+        std16, std32, std_err = (diversity_std(x).mean().item() * 1e3
+                                 for x in (j16, j32, j16 - j32))
+        log("eval", f"batch {seed - 100}, unguided DDIM-5, diversity std over the {S} samples, "
+                    f"mm: bf16 {std16:.4f}, f32 {std32:.4f}, of (bf16 - f32) body by body "
+                    f"{std_err:.4f}; f32 and that in quadrature "
+                    f"{(std32 ** 2 + std_err ** 2) ** 0.5:.4f}")
+    log("eval", f"the two batches: {n_invis[0]} of {n_batches * B * 24} joints and {n_invis[1]} "
+                f"of {n_batches * B * V_FULL} vertices are invisible, in {n_images} of "
+                f"{n_batches * B} images")
+    if n_invis[0] < MIN_INVISIBLE_JOINTS:
+        fail(f"only {n_invis[0]} invisible joints: the *_invis keys check too little")
+
+    def run(extra):
+        t = time.perf_counter()
+        summary = cli.main(EVAL_ARGS + extra)
+        torch.cuda.synchronize()
+        return summary, time.perf_counter() - t
+
+    cli.main(EVAL_ARGS[:-1] + ["1"] + EVAL_RUNS["unguided DDIM-5"][0])  # warm-up
+    counts = {"k1": 0, "k2": 0}
+    for name, (extra, guided_steps) in EVAL_RUNS.items():
+        k1.launches = k2.launches = 0  # main path starts: count launches from here
+        summary, secs = run(extra)
+        d1, d2 = k1.launches, k2.launches  # main path ends
+        want2 = n_batches * (2 + guided_steps)
+        log("eval", f"{name}, bf16 + K1, {B} images x {S} samples x {n_batches} batches: "
+                    f"{secs:.2f} s for the whole CLI run (model set-up included); K1 launches "
+                    f"{d1}, K2 launches {d2}")
+        if d1 != n_batches or d2 != want2:
+            fail(f"eval {name}: K1 launched {d1} times (want {n_batches}), K2 {d2} "
+                 f"(want {want2}: 2 per evaluated batch and {guided_steps} guided "
+                 "steps per batch)")
+        counts["k1"] += d1
+        counts["k2"] += d2
+        # the f32 plain run on the card: the same images, the same noise
+        f32, secs32 = run(extra + F32_PLAIN)
+        log("eval", f"{name}: f32 plain run on the card {secs32:.2f} s")
+        if set(summary) != set(f32):
+            fail(f"eval {name}: summary keys differ between the bf16 and the f32 run")
+        # every value finite, or NaN exactly where the f32 run's is; the
+        # error metrics, in mm, within 5 mm of the f32 run's
+        worst = ""
+        for key in sorted(summary):
+            v, w = summary[key], f32[key]
+            if np.isnan(v) != np.isnan(w) or np.isinf(v):
+                fail(f"eval {name}: {key} is {v} (f32 plain on the card {w})")
+            if key in ("coll_ratio", "contact") and not 0.0 <= v <= 1.0:
+                fail(f"eval {name}: {key} = {v} outside [0, 1]")
+            diff = abs(v - w)
+            log("eval", f"{name}: {key}: bf16 {v:.4f}, f32 {w:.4f}, |diff| {diff:.4f}")
+            if ("mpjpe" in key or "v2v" in key) and not diff <= 5.0:
+                worst = worst or f"{key} ({diff:.2f} mm, bar 5)"
+        if worst:
+            fail(f"eval {name}: {worst}: the bf16 run strays from the f32 run")
+
+    # the time of `evaluate_batch` per batch, and of K2 inside it
+    batch = edge_batch(B, seed=100, device=dev)
+    with torch.no_grad():
+        outputs, cond = sample(batch)
+
+        def host_ms(fn, reps=5):
+            fn()
+            times = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            return float(np.median(times))
+
+        eval_ms = host_ms(lambda: evaluate_batch(fused, smpl, smpl, smpl, batch, outputs, cond))
+        bare_ms = host_ms(lambda: evaluate_batch(fused, smpl, smpl, smpl, batch, outputs, cond,
+                                                 eval_collision=False, eval_contact=False))
+        sample_ms = host_ms(lambda: sample(batch), reps=3)
+        ddpm = make_schedule(50, "cosine", "").to(dev)
+        guided_ms = host_ms(lambda: sample(batch, schedule=ddpm, sampler="ddpm",
+                                           with_guidance=True), reps=2)
+        verts = outputs["pred_vertices"].reshape(B * S, -1, 3).contiguous()
+        scene = cond.scene_pcd.repeat_interleave(S, dim=0).contiguous()
+        k2_metric = time_ms(lambda: k2.nearest_vertex_idx(scene, verts), reps=10)
+        k2_cloud = time_ms(lambda: k2.nearest_vertex_idx(verts, scene), reps=10)
+    pairs = float(B * S) * P_FULL * V_FULL
+    k2_bound = 6.0 * pairs / PEAK_F32 * 1e3
+    log("eval", f"one batch of {B} images x {S} samples, host clock, median: unguided DDIM-5 "
+                f"`sample_bodies` {sample_ms:.2f} ms, guided DDPM-50 `sample_bodies` "
+                f"{guided_ms:.2f} ms, `evaluate_batch` {eval_ms:.2f} ms "
+                f"({bare_ms:.2f} ms without the collision and contact scores)")
+    log("eval", f"K2 inside `evaluate_batch`, CUDA events, median of 10: scene -> body "
+                f"[{B * S}, {P_FULL}] x {V_FULL}: {k2_metric:.3f} ms; body -> scene "
+                f"[{B * S}, {V_FULL}] x {P_FULL}: {k2_cloud:.3f} ms; bound {k2_bound:.3f} ms each "
+                f"by operations; together {(k2_metric + k2_cloud) / eval_ms * 100:.1f}% of "
+                f"`evaluate_batch`")
+    counts.update(eval_ms=eval_ms, eval_no_collision_ms=bare_ms, sample_ms=sample_ms,
+                  guided_sample_ms=guided_ms,
+                  k2_metric_ms=k2_metric, k2_cloud_ms=k2_cloud, k2_bound_ms=k2_bound)
+    return counts
+
+
 def main() -> None:
     smi = phase_device()
     from egohmr_tpu_torch.models import EgoHMRConfig
 
     cfg = EgoHMRConfig()  # full width: ResNet-50, H=256, GCN 1024x4
     phase_build()
-    kernels = [phase_kernel_k1(cfg), phase_kernel_k2()]
+    kernels = [phase_kernel_k1(cfg), phase_kernel_k2(), phase_kernel_k3()]
     unguided = phase_serve(cfg)
     guided = phase_guided(cfg)
-    # launches: over both main paths, each counted from 0 just before it
-    kernels[0].update(launches=unguided + guided["k1"], launches_unguided=unguided,
-                      launches_guided=guided["k1"])
-    kernels[1].update(launches=guided["k2"], launches_unguided=0,
-                      launches_guided=guided["k2"])
+    evaluated = phase_eval(cfg)
+    # launches: over the main paths, each counted from 0 just before it (K3's
+    # main path is the probe's own entry point, counted in its phase)
+    kernels[0].update(launches=unguided + guided["k1"] + evaluated["k1"],
+                      launches_unguided=unguided, launches_guided=guided["k1"],
+                      launches_eval=evaluated["k1"])
+    kernels[1].update(launches=guided["k2"] + evaluated["k2"], launches_unguided=0,
+                      launches_guided=guided["k2"], launches_eval=evaluated["k2"],
+                      eval_shapes={k: evaluated[k] for k in
+                                   ("k2_metric_ms", "k2_cloud_ms", "k2_bound_ms", "eval_ms")})
     for k in kernels:
         if k["launches"] < 1:
             fail(f"{k['name']} was never launched on a main path")

@@ -1,4 +1,27 @@
-"""Inference pipeline (metrics come in a later slice)."""
-from .pipeline import sample_bodies, tile_condition
+"""Inference pipeline, metrics and the evaluation CLI (`test_egohmr`)."""
+from .metrics import (
+    apd,
+    diversity_std,
+    joint_visibility_mask,
+    mpjpe,
+    pa_mpjpe,
+    similarity_transform,
+    similarity_transform_vis_mask,
+    v2v,
+)
+from .pipeline import EvalResult, evaluate_batch, sample_bodies, tile_condition
 
-__all__ = ["sample_bodies", "tile_condition"]
+__all__ = [
+    "apd",
+    "diversity_std",
+    "joint_visibility_mask",
+    "mpjpe",
+    "pa_mpjpe",
+    "similarity_transform",
+    "similarity_transform_vis_mask",
+    "v2v",
+    "EvalResult",
+    "evaluate_batch",
+    "sample_bodies",
+    "tile_condition",
+]

@@ -1,15 +1,21 @@
-"""Stage-2 inference pipeline, with and without collision guidance (port
-of egohmr_tpu/eval/pipeline.py:tile_condition and sample_bodies).
+"""Stage-2 inference and metric evaluation (port of
+egohmr_tpu/eval/pipeline.py).
 
 The per-image condition is computed once and tiled S times along the batch
 axis, so all S samples of all B images run in one sampling loop.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..collision import (
+    bbox_mask,
+    collision_ratio,
+    min_body_scene_distance,
+    signed_distance,
+)
 from ..diffusion import DiffusionSchedule, GuidanceConfig, sample_loop
 from ..models import (
     BodyRepStats,
@@ -22,7 +28,15 @@ from ..models import (
     model_outputs,
 )
 from ..nn import cast_params_bf16
-from ..smpl import SMPLModel
+from ..smpl import SMPLModel, lbs, vertex_normals
+from .metrics import (
+    apd,
+    diversity_std,
+    joint_visibility_mask,
+    mpjpe,
+    pa_mpjpe,
+    v2v,
+)
 
 
 def tile_condition(cond: Condition, s: int) -> Condition:
@@ -50,6 +64,7 @@ def sample_bodies(
     sampler: str = "ddpm",
     with_guidance: bool = False,
     guidance: GuidanceConfig = GuidanceConfig(),
+    use_stage1_transl: bool = True,
     collision_backend: str = "sdf",
     bf16: bool = False,
     params_precast: bool = False,
@@ -60,7 +75,9 @@ def sample_bodies(
 
     `sampler` is "ddpm" or "ddim" over `schedule`'s steps. `with_guidance`
     adds the collision-score gradient on the low-noise steps (`guidance`
-    holds its thresholds and weights). `collision_backend` names the
+    holds its thresholds and weights). `use_stage1_transl` puts the stage-1
+    translation (`stage1_transl_full`, when the batch has it) in place of
+    the input one. `collision_backend` names the
     gradient's source; only the exact mesh SDF ("sdf") is ported.
     `guidance_refresh_every` > 1 reuses the guided step's selection pass
     across that many adjacent guided steps (an approximation; 1 is exact).
@@ -84,6 +101,10 @@ def sample_bodies(
             "backends are not ported yet (ROADMAP slice 7)")
     if collision_backend != "sdf":
         raise ValueError(f"unknown collision_backend: {collision_backend}")
+    if use_stage1_transl and "stage1_transl_full" in batch:
+        batch = dict(batch)
+        batch["smpl_params"] = dict(batch["smpl_params"])
+        batch["smpl_params"]["transl"] = batch["stage1_transl_full"]
     B = batch["img"].shape[0]
     if bf16:
         if not params_precast:
@@ -114,3 +135,150 @@ def sample_bodies(
     out = model_outputs(cfg, smpl, cond_s, x0, stats)
     out = {k: v.reshape(B, num_samples, *v.shape[1:]) for k, v in out.items()}
     return out, cond
+
+
+class EvalResult(NamedTuple):
+    """Per-image metrics, all [B] or [B, S]; distances in metres."""
+
+    g_mpjpe: torch.Tensor
+    g_mpjpe_vis: torch.Tensor
+    g_mpjpe_invis: torch.Tensor
+    mpjpe_all: torch.Tensor
+    mpjpe_vis: torch.Tensor
+    mpjpe_invis: torch.Tensor
+    pa_mpjpe_all: torch.Tensor
+    pa_mpjpe_vis: torch.Tensor
+    pa_mpjpe_invis: torch.Tensor
+    v2v_all: torch.Tensor
+    v2v_vis: torch.Tensor
+    v2v_invis: torch.Tensor
+    std_all: torch.Tensor
+    std_vis: torch.Tensor
+    std_invis: torch.Tensor
+    apd_all: torch.Tensor
+    apd_vis: torch.Tensor
+    apd_invis: torch.Tensor
+    coll_ratio: Optional[torch.Tensor]
+    contact: Optional[torch.Tensor]
+    # per-image visible / invisible joint and vertex counts: the weights for
+    # aggregating the masked metrics across images (an image with an empty
+    # mask has zero weight)
+    vis_count: torch.Tensor
+    invis_count: torch.Tensor
+    vertex_vis_count: torch.Tensor
+    vertex_invis_count: torch.Tensor
+
+
+@torch.no_grad()
+def evaluate_batch(
+    cfg: EgoHMRConfig,
+    smpl_neutral: SMPLModel,
+    smpl_male: SMPLModel,
+    smpl_female: SMPLModel,
+    batch: Dict,
+    outputs: Dict[str, torch.Tensor],
+    cond: Condition,
+    *,
+    eval_with_vis_mask_pa: bool = True,
+    eval_collision: bool = True,
+    eval_contact: bool = True,
+    contact_thresh: float = 0.02,
+    collision_backend: str = "sdf",
+) -> EvalResult:
+    """The metrics of one batch. `outputs` are [B, S, ...] from
+    `sample_bodies`, `cond` its per-image condition. Only the exact mesh SDF
+    ("sdf") computes the collision ratio here; the learned backends are not
+    ported yet. On CUDA tensors the collision ratio and the contact score
+    each launch kernel K2 once, over all B * S bodies (`signed_distance`
+    from the whole scene cloud to the body, `min_body_scene_distance` from
+    the body to the cloud)."""
+    if collision_backend in ("occupancy", "volsdf"):
+        raise NotImplementedError(
+            f"collision_backend {collision_backend!r}: the learned collision "
+            "backends are not ported yet (ROADMAP slice 7)")
+    if collision_backend != "sdf":
+        raise ValueError(f"unknown collision_backend: {collision_backend}")
+    B, S = outputs["pred_keypoints_3d"].shape[:2]
+    gtp = batch["smpl_params"]
+
+    # the gendered GT body: both bodies are posed, one is selected per image
+    gt_m = lbs(smpl_male, gtp["betas"], gtp["global_orient"], gtp["body_pose"],
+               transl=gtp["transl"], pose2rot=True)
+    gt_f = lbs(smpl_female, gtp["betas"], gtp["global_orient"], gtp["body_pose"],
+               transl=gtp["transl"], pose2rot=True)
+    is_f = (batch["gender"] == 1)[:, None, None]
+    gt_verts = torch.where(is_f, gt_f.vertices, gt_m.vertices)
+    gt_kp3d = torch.where(is_f, gt_f.joints, gt_m.joints)[:, :24]
+
+    # visibility: the GT joint projects into the full image
+    vis = joint_visibility_mask(gt_kp3d, cond.focal_length, cond.camera_center,
+                                cfg.full_img_w, cfg.full_img_h).float()  # [B, 24]
+    invis = 1.0 - vis
+
+    pred_kp3d = outputs["pred_keypoints_3d_full"][:, :, :24]  # [B, S, 24, 3]
+    gt_full_b = gt_kp3d[:, None].expand(pred_kp3d.shape)
+    vis_s = vis[:, None].expand(B, S, 24)
+    invis_s = 1.0 - vis_s
+    g_mpjpe = mpjpe(pred_kp3d, gt_full_b)
+    g_vis = mpjpe(pred_kp3d, gt_full_b, mask=vis_s)
+    g_invis = mpjpe(pred_kp3d, gt_full_b, mask=invis_s)
+    mp_all = mpjpe(pred_kp3d, gt_full_b, pelvis_align=True)
+    mp_vis = mpjpe(pred_kp3d, gt_full_b, pelvis_align=True, mask=vis_s)
+    mp_invis = mpjpe(pred_kp3d, gt_full_b, pelvis_align=True, mask=invis_s)
+
+    # Procrustes on pelvis-aligned coordinates: the vis-masked fit zeroes the
+    # invisible joints, which is only safe near a zero mean
+    pred_align = pred_kp3d - pred_kp3d[:, :, :1]
+    gt_align = gt_full_b - gt_full_b[:, :, :1]
+    vm = vis_s if eval_with_vis_mask_pa else None
+    pa_all = pa_mpjpe(pred_align, gt_align, vis_mask=vm)
+    pa_vis = pa_mpjpe(pred_align, gt_align, vis_mask=vm, mask=vis_s)
+    pa_invis = pa_mpjpe(pred_align, gt_align, vis_mask=vm, mask=invis_s)
+
+    # v2v in the local body frame: pred_vertices carry no translation, so
+    # the pelvis comes from the local joints; both sides align by their own
+    pred_pelvis = outputs["pred_keypoints_3d"][:, :, 0]
+    pred_verts = outputs["pred_vertices"]  # [B, S, V, 3]
+    gt_verts_b = gt_verts[:, None].expand(pred_verts.shape)
+    vertex_vis = joint_visibility_mask(gt_verts, cond.focal_length, cond.camera_center,
+                                       cfg.full_img_w, cfg.full_img_h).float()  # [B, V]
+    vvis_s = vertex_vis[:, None].expand(B, S, vertex_vis.shape[-1])
+    gt_pelvis = gt_full_b[:, :, 0]
+    v2v_all = v2v(pred_verts, gt_verts_b, pred_pelvis, gt_pelvis)
+    v2v_vis = v2v(pred_verts, gt_verts_b, pred_pelvis, gt_pelvis, mask=vvis_s)
+    v2v_invis = v2v(pred_verts, gt_verts_b, pred_pelvis, gt_pelvis, mask=1.0 - vvis_s)
+
+    # diversity over the S bodies (pelvis-aligned joints)
+    samples = pred_kp3d - pred_kp3d[:, :, :1]
+
+    coll = None
+    contact = None
+    if eval_collision or eval_contact:
+        verts_flat = pred_verts.reshape(B * S, -1, 3)
+        # the bodies are posed without translation; the scene is canonical
+        # to match. Image-major, sample-minor, as the bodies are
+        scene_s = cond.scene_pcd.repeat_interleave(S, dim=0)
+        if eval_collision:
+            normals = vertex_normals(verts_flat, smpl_neutral.faces)
+            mask = bbox_mask(scene_s, verts_flat)
+            sdf = signed_distance(scene_s, verts_flat, normals)
+            coll = collision_ratio(sdf, mask.to(sdf.dtype)).reshape(B, S)
+        if eval_contact:
+            dmin = min_body_scene_distance(verts_flat, scene_s)
+            # the reference thresholds chamfer distances, which are SQUARED:
+            # 0.02 applies to dist^2, not to dist
+            contact = (torch.square(dmin) < contact_thresh).float().reshape(B, S)
+
+    return EvalResult(
+        g_mpjpe=g_mpjpe, g_mpjpe_vis=g_vis, g_mpjpe_invis=g_invis,
+        mpjpe_all=mp_all, mpjpe_vis=mp_vis, mpjpe_invis=mp_invis,
+        pa_mpjpe_all=pa_all, pa_mpjpe_vis=pa_vis, pa_mpjpe_invis=pa_invis,
+        v2v_all=v2v_all, v2v_vis=v2v_vis, v2v_invis=v2v_invis,
+        std_all=diversity_std(samples), std_vis=diversity_std(samples, vis),
+        std_invis=diversity_std(samples, invis),
+        apd_all=apd(samples), apd_vis=apd(samples, vis), apd_invis=apd(samples, invis),
+        coll_ratio=coll, contact=contact,
+        vis_count=torch.sum(vis, dim=-1), invis_count=torch.sum(invis, dim=-1),
+        vertex_vis_count=torch.sum(vertex_vis, dim=-1),
+        vertex_invis_count=torch.sum(1.0 - vertex_vis, dim=-1),
+    )

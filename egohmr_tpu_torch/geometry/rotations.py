@@ -66,3 +66,56 @@ def rotmat_to_rot6d(rotmat: torch.Tensor, rot6d_mode: str = "diffusion") -> torc
     if rot6d_mode == "prohmr":
         return r[:, :, :2].transpose(1, 2).reshape(-1, 6)
     raise ValueError(f"unknown rot6d_mode: {rot6d_mode}")
+
+
+def rotmat_to_quat(rotmat: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix [..., 3, 3] -> quaternion (w, x, y, z) [..., 4].
+
+    The four candidates of the numerically stable conversion are all
+    computed and one is selected per matrix with `torch.where`: on the
+    trace when it is positive, else on the largest diagonal entry."""
+    m = rotmat
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    trace = m00 + m11 + m22
+
+    def safe_sqrt(v):
+        return torch.sqrt(torch.clamp(v, min=1e-24))
+
+    s0 = safe_sqrt(trace + 1.0) * 2.0
+    q0 = torch.stack([0.25 * s0, (m21 - m12) / s0, (m02 - m20) / s0,
+                      (m10 - m01) / s0], dim=-1)
+    s1 = safe_sqrt(1.0 + m00 - m11 - m22) * 2.0
+    q1 = torch.stack([(m21 - m12) / s1, 0.25 * s1, (m01 + m10) / s1,
+                      (m02 + m20) / s1], dim=-1)
+    s2 = safe_sqrt(1.0 - m00 + m11 - m22) * 2.0
+    q2 = torch.stack([(m02 - m20) / s2, (m01 + m10) / s2, 0.25 * s2,
+                      (m12 + m21) / s2], dim=-1)
+    s3 = safe_sqrt(1.0 - m00 - m11 + m22) * 2.0
+    q3 = torch.stack([(m10 - m01) / s3, (m02 + m20) / s3, (m12 + m21) / s3,
+                      0.25 * s3], dim=-1)
+
+    cond0 = (trace > 0.0)[..., None]
+    cond1 = ((m00 >= m11) & (m00 >= m22))[..., None]
+    cond2 = (m11 >= m22)[..., None]
+    return torch.where(cond0, q0, torch.where(cond1, q1, torch.where(cond2, q2, q3)))
+
+
+def quat_to_aa(quat: torch.Tensor) -> torch.Tensor:
+    """Quaternion (w, x, y, z) [..., 4] -> axis-angle [..., 3], stable near
+    the zero rotation."""
+    w = quat[..., 0]
+    xyz = quat[..., 1:]
+    sin_sq = torch.sum(xyz * xyz, dim=-1)
+    sin_theta = torch.sqrt(torch.clamp(sin_sq, min=1e-24))
+    two_theta = 2.0 * torch.where(
+        w < 0.0, torch.atan2(-sin_theta, -w), torch.atan2(sin_theta, w))
+    k = torch.where(sin_sq > 1e-12, two_theta / sin_theta,
+                    2.0 * torch.ones_like(sin_theta))
+    return xyz * k[..., None]
+
+
+def rotmat_to_aa(rotmat: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix [..., 3, 3] -> axis-angle [..., 3]."""
+    return quat_to_aa(rotmat_to_quat(rotmat))

@@ -155,6 +155,22 @@ class Predictor:
         """One blocking request."""
         return self.result(self.submit(batch, seed=seed))
 
+    def warmup(self, batch: Optional[Dict] = None) -> None:
+        """Run one request before taking traffic, and wait for it: the
+        kernels are built, cuDNN picks its algorithms and the allocator
+        grows to the request's size.
+
+        `batch` must have the shapes real traffic will use (image size,
+        scene-point count): what is warmed is warmed per shape."""
+        if batch is None:
+            raise ValueError(
+                "warmup() needs a representative batch: cuDNN's algorithms "
+                "and the allocator's pools are chosen PER SHAPE. Pass a "
+                "batch with real traffic's image size and scene-point "
+                "count, e.g. egohmr_tpu_torch.data.synthetic_batch("
+                f"{self.batch_size}, num_scene_points=<your P>)")
+        self.result(self.submit(batch))
+
     def map_batches(self, batches: Iterable[Dict], *,
                     seed: int = 0) -> Iterator[Dict[str, np.ndarray]]:
         """Run a stream of requests with at most `max_inflight` in flight;

@@ -1,5 +1,7 @@
-"""SMPL constants, linear blend skinning and the synthetic test model."""
-from .loader import make_synthetic_model
+"""SMPL constants, linear blend skinning, the loader of the SMPL body files
+and the synthetic test model."""
+from . import constants
+from .loader import create, load_smpl_pkl, make_synthetic_model
 from .model import (
     SMPLModel,
     SMPLOutput,
@@ -9,5 +11,6 @@ from .model import (
     vertex_normals,
 )
 
-__all__ = ["SMPLModel", "SMPLOutput", "lbs", "lbs_apply_select",
-           "lbs_transforms", "make_synthetic_model", "vertex_normals"]
+__all__ = ["constants", "SMPLModel", "SMPLOutput", "create", "lbs",
+           "lbs_apply_select", "lbs_transforms", "load_smpl_pkl",
+           "make_synthetic_model", "vertex_normals"]

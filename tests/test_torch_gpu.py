@@ -1,4 +1,5 @@
-"""Kernels K1 and K2 on the card, each held to its plain version. Needs a
+"""Kernels K1, K2 and K3 on the card, each held to its plain version, and
+the evaluation CLI on the card against the CPU. Needs a
 CUDA device and `nvcc`; skips without a card. Run on a GPU machine with
 `python -m pytest --noconftest tests/test_torch_gpu.py -q` (the repo's
 conftest imports JAX, which a GPU machine need not have)."""
@@ -126,3 +127,99 @@ def test_k2_rejects_what_it_does_not_take(cuda):
         k2.nearest_vertex_idx(pts.double(), verts.double())
     with pytest.raises(ValueError, match="expected"):
         k2.nearest_vertex_idx(pts[0], verts)
+
+
+def _assert_k3_agrees(name, got, ref):
+    """int8 variants element for element; bf16 within rtol 1e-4 of the plain
+    f32 sum (the tensor cores add the k-steps straight into the carried sum,
+    the plain version adds each product's own sum); the glue variant within
+    rtol 1e-5 but for at most 0.1% of the elements, which may sit one
+    quantisation step apart (a row scale off by an ulp moves a rounding)."""
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    if got.dtype == torch.int32:
+        assert torch.equal(got, ref)
+    elif name.startswith("A"):
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+    else:
+        close = torch.isclose(got, ref, rtol=1e-5, atol=1e-7)
+        assert close.float().mean().item() >= 0.999
+        torch.testing.assert_close(got, ref, rtol=2e-2, atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["A_bf16", "A1_bf16_bare", "B_int8", "B1_int8_bare",
+                                  "B2_int8_slice", "C_int8_glue"])
+def test_k3_matches_plain_version(cuda, name):
+    """Every variant of the matmul-rate probe at the full M, K, N and
+    G = 3 chains, R = 0, 1, 2, 7, with a 127 planted in the int8 operand so
+    that the wrapping add is exercised; every launch is counted."""
+    from egohmr_tpu_torch.tools import probe_int8_mma as k3
+
+    ops = list(k3.make_inputs(seed=3, device=cuda)[name])
+    if name.startswith("B"):
+        ops[0][5, 7] = 127
+    for r in (0, 1, 2, 7):
+        before = k3.launches
+        got = k3.run(name, r, 3, *ops)
+        torch.cuda.synchronize()
+        assert k3.launches == before + 1
+        _assert_k3_agrees(name, got, k3.plain(name, r, 3, *ops))
+
+
+@pytest.mark.gpu
+def test_k3_rejects_what_it_does_not_take(cuda):
+    from egohmr_tpu_torch.tools import probe_int8_mma as k3
+
+    x, w = k3.make_inputs(device=cuda)["B_int8"]
+    with pytest.raises(ValueError, match="multiple of"):
+        k3.run("B_int8", 1, 1, x[:100], w)
+    with pytest.raises(ValueError, match="overflow"):
+        k3.run("B_int8", 501, 1, x, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("guided", [False, True], ids=["unguided", "guided"])
+def test_eval_cli_on_the_card_matches_the_cpu(cuda, monkeypatch, guided):
+    """The evaluation CLI in f32 with the plain PointNet, on the card (where
+    `evaluate_batch` and the guidance reach K2) against the CPU: the same
+    weights, the same images (ResNet-50 width, 2,000 scene points so that the
+    CPU's search ends in seconds; one body at the image's edge, one outside
+    it, so that the masked keys and the empty mask are exercised) and the
+    same x_T, handed in because a CUDA and a CPU generator draw other
+    numbers. Summary keys equal, NaN in the same places, values within
+    rtol 1e-3; the diversity keys (std, apd: a fraction of a millimetre,
+    the spread of S bodies whose coordinates are of the order of a metre)
+    within 0.005 mm besides, some tens of f32 ulps of such a coordinate."""
+    import numpy as np
+
+    from egohmr_tpu_torch.data import synthetic_batch, to_torch
+    from egohmr_tpu_torch.eval import sample_bodies
+    from egohmr_tpu_torch.eval import test_egohmr as cli
+
+    B, S = 3, 2
+    x_T = torch.randn(B * S, 144, generator=torch.Generator().manual_seed(11))
+
+    def batch_at_the_edge(batch_size, *, seed, device):
+        batch = synthetic_batch(batch_size, num_scene_points=2000, seed=seed)
+        batch["smpl_params"]["transl"][1, 0] = 1.2   # u around the right edge
+        batch["smpl_params"]["transl"][2, 0] = 4.0   # far outside
+        return to_torch(batch, device)
+
+    def same_noise(*a, **kw):
+        device = a[5]["img"].device
+        return sample_bodies(*a, **{**kw, "noise": x_T.to(device)})
+
+    monkeypatch.setattr(cli, "synthetic_batch", batch_at_the_edge)
+    monkeypatch.setattr(cli, "sample_bodies", same_noise)
+    args = ["--synthetic", "--batch_size", str(B), "--num_batches", "1", "--num_samples", str(S),
+            "--bf16", "false", "--pointnet_impl", "xla", "--timestep_respacing_eval", "ddim5",
+            "--with_coap_grad", "true" if guided else "false"]
+    before = k2.launches
+    got = cli.main(args + ["--device", "cuda"])
+    assert k2.launches == before + (2 + 4 if guided else 2)
+    want = cli.main(args + ["--device", "cpu"])
+    assert list(got) == list(want)
+    for k in want:
+        atol = 5e-3 if k.startswith(("std", "apd")) else 1e-6
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-3, atol=atol, equal_nan=True,
+                                   err_msg=k)

@@ -44,10 +44,19 @@ def batch_np():
     return synthetic_batch(2, num_scene_points=600, img_size=64, seed=3)
 
 
-def test_state_dict_equals_export_egohmr(pair):
-    """Key for key and value for value, and a strict load takes every key."""
+@pytest.mark.parametrize("through_npz", [False, True], ids=["tree", "save_npz"])
+def test_state_dict_equals_export_egohmr(pair, tmp_path, through_npz):
+    """Key for key and value for value, and a strict load takes every key;
+    also for a tree that the JAX package wrote with `save_npz` and the port
+    read back with its own `load_npz_tree`."""
     _, _, params, model = pair
     want = export_egohmr(params)
+    if through_npz:
+        from egohmr_tpu.utils.checkpoint import save_npz
+        from egohmr_tpu_torch.utils.checkpoint import load_npz_tree
+
+        save_npz(str(tmp_path / "params.npz"), params)
+        params = load_npz_tree(str(tmp_path / "params.npz"))
     got = state_dict_from_jax(params)
     assert sorted(got) == sorted(want)
     for k in want:

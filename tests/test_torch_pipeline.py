@@ -234,13 +234,17 @@ def test_map_batches_in_order(predictor):
 
 
 def test_port_never_imports_jax():
-    """Neither the package nor chip_smoke.py imports JAX or egohmr_tpu, and
-    importing the package and running the CPU serving path leaves JAX
+    """No file under the package (its `tools/`, `viz/` and `utils/`
+    included) and not chip_smoke.py imports JAX or egohmr_tpu, and importing
+    the package's entry points and running the CPU serving path leaves JAX
     unloaded."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     pkg = os.path.join(root, "egohmr_tpu_torch")
     sources = [os.path.join(root, "chip_smoke.py")] + [
         os.path.join(d, f) for d, _, files in os.walk(pkg) for f in files if f.endswith(".py")]
+    walked = {os.path.relpath(f, pkg) for f in sources[1:]}
+    assert {"tools/probe_int8_mma.py", "viz/renderer.py", "utils/checkpoint.py", "native.py",
+            "eval/test_egohmr.py", "data/egobody.py"} <= walked
     for f in sources:
         for node in ast.walk(ast.parse(open(f).read())):
             names = ([a.name for a in node.names] if isinstance(node, ast.Import)
@@ -262,6 +266,8 @@ def test_port_never_imports_jax():
         "    device='cpu', batch_size=2)\n"
         "out = p(synthetic_batch(1, num_scene_points=64, img_size=32))\n"
         "assert out['pred_pose_6d'].shape == (1, 1, 144)\n"
+        "import egohmr_tpu_torch.eval.test_egohmr, egohmr_tpu_torch.tools.probe_int8_mma\n"
+        "import egohmr_tpu_torch.viz, egohmr_tpu_torch.utils.checkpoint, egohmr_tpu_torch.native\n"
         "assert 'jax' not in sys.modules and 'egohmr_tpu' not in sys.modules\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -282,3 +288,12 @@ def test_pack_dtype_float16(predictor, setup):
     for k, v in out.items():
         assert v.dtype == np.float32, k
         np.testing.assert_allclose(v, ref[k], rtol=2e-3, atol=2e-3, err_msg=k)
+
+
+def test_predictor_warmup(predictor):
+    """`warmup` runs one request to its end and, as in the JAX package,
+    refuses to guess the traffic's shapes."""
+    with pytest.raises(ValueError, match="representative batch"):
+        predictor.warmup()
+    assert predictor.warmup(_mini(4, 5)) is None
+    assert predictor._layout is not None
