@@ -125,7 +125,7 @@ def bound(flops: float, peak: float, nbytes: float) -> dict:
 
 def phase_kernel_k1(cfg) -> dict:
     from egohmr_tpu_torch.models import init_random_
-    from egohmr_tpu_torch.nn import ResnetPointnet, pointnet_forward
+    from egohmr_tpu_torch.nn import ResnetPointnet, cast_params_bf16, pointnet_forward
     from egohmr_tpu_torch.nn import pointnet_fused as k1
 
     enc = init_random_(ResnetPointnet(cfg.scene_feat_dim, cfg.pointnet_hidden_dim),
@@ -133,7 +133,7 @@ def phase_kernel_k1(cfg) -> dict:
     g = torch.Generator().manual_seed(2)
     max_err = 0.0
     # the serving paths' shape, the evaluation path's (a batch of 8 images),
-    # and a small ragged one (no P is a multiple of the 64-point tile)
+    # and a small ragged one (no P is a multiple of the 128-point tile)
     for B, P in ((B_TIME, P_FULL), (8, P_FULL), (3, 4099)):
         pts = torch.randn(B, P, 3, generator=g).cuda()
         got = k1.pointnet_fused_feature(enc, pts)
@@ -155,12 +155,40 @@ def phase_kernel_k1(cfg) -> dict:
                   "the flips carry through three pooled stages")
 
     pts = torch.randn(B_TIME, P_FULL, 3, generator=g).cuda()
+    enc16, pts16 = cast_params_bf16(enc), pts.to(torch.bfloat16)
     with torch.no_grad():
         ms = time_ms(lambda: k1.pointnet_fused_feature(enc, pts), reps=10)
         plain_ms = time_ms(lambda: k1.pointnet_fused_reference(enc, pts), reps=5)
         f32_ms = time_ms(lambda: pointnet_forward(enc, pts), reps=5)
+        # the many-call route: the port's plain encoder in bf16 on cuBLAS
+        bf16_ms = time_ms(lambda: pointnet_forward(enc16, pts16), reps=5)
+        small = {B: time_ms(lambda: k1.pointnet_fused_feature(enc, pts[:B]), reps=10)
+                 for B in (16, 8)}
     log("kernel", f"B={B_TIME}, P={P_FULL}, median of CUDA-event timings: K1 {ms:.3f} ms, "
-                  f"plain emulation {plain_ms:.3f} ms, f32 pointnet_forward {f32_ms:.3f} ms")
+                  f"plain emulation {plain_ms:.3f} ms, f32 pointnet_forward {f32_ms:.3f} ms, "
+                  f"bf16 pointnet_forward (cuBLAS, many calls) {bf16_ms:.3f} ms; "
+                  f"K1 at B=16 {small[16]:.3f} ms, at B=8 {small[8]:.3f} ms")
+    # K1's launches by kernel, under the profiler. The pool kernel of the
+    # first form (a serial walk over per-tile partial maxes) is gone: the
+    # max is merged by atomicMax, and context_kernel only decodes it and
+    # computes the pooled-context rows.
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        k1.pointnet_fused_feature(enc, pts)
+        torch.cuda.synchronize()
+    parts = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+            name = e.key.replace("void ", "").replace("(anonymous namespace)::", "")
+            name = name.split("(")[0][:48]
+            parts[name] = parts.get(name, 0.0) + e.self_device_time_total / 1e3
+    if parts:
+        log("kernel", "K1 by kernel, one call under the profiler, ms: "
+                      + ", ".join(f"{k} {v:.3f}" for k, v in sorted(parts.items()))
+                      + "; no pool kernel: context_kernel, 4 launches, decodes the max")
+    else:
+        log("kernel", "K1 by kernel: the profiler recorded no device time: not measured")
     # products per point: fc_pos 3->2H, block 0 (2H->H, H->H, shortcut
     # 2H->H), blocks 1-3 on the point's own half (three H->H each; the
     # pooled half is one row per cloud); bytes: the bf16 points, the bf16
@@ -176,7 +204,8 @@ def phase_kernel_k1(cfg) -> dict:
             "source": "egohmr_tpu_torch/csrc/pointnet_fused.cu",
             "replaces": "egohmr_tpu/nn/pointnet_fused.py:46",
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, **b,
-            "library_ms": None, "f32_pointnet_ms": f32_ms}
+            "library_ms": None, "f32_pointnet_ms": f32_ms, "bf16_pointnet_ms": bf16_ms,
+            "ms_b16": small[16], "ms_b8": small[8], "by_kernel_ms": parts}
 
 
 def points_near_body(B: int, P: int, V: int, seed: int):
@@ -214,9 +243,8 @@ def phase_kernel_k2() -> dict:
 
     def k2_bound(B, P, V):
         # per pair the least is three FMAs, 6 flops: with -2 folded into
-        # the point, |v|^2 - 2 p.v is one chain of three (the kernel spends
-        # four; the compare and select are not counted); f32 points and
-        # vertices in, int64 out
+        # the vertex, |v|^2 - 2 p.v is one chain of three (the kernel's min
+        # is not counted); f32 points and vertices in, int64 out
         return bound(6.0 * B * P * V, PEAK_F32, B * P * 12 + B * V * 12 + B * P * 8)
 
     # the shapes the callers give it: guided DDIM-5 (batch 64) and guided
@@ -247,7 +275,7 @@ def phase_kernel_k2() -> dict:
         if not ok:
             fail(f"K2 disagrees with its plain version at the {name} shape")
         max_err, n_differ = max(max_err, err), n_differ + differ
-        if name in ("guided", "metric", "cloud"):
+        if name in ("guided", "guided DDPM", "metric", "cloud", "eval metric", "eval cloud"):
             if not torch.equal(library(pts, verts), ref):
                 log("kernel", f"(the library route's indices differ from the plain "
                               f"version's at the {name} shape)")
@@ -267,7 +295,9 @@ def phase_kernel_k2() -> dict:
             "source": "egohmr_tpu_torch/csrc/nearest_vertex.cu",
             "replaces": "egohmr_tpu/collision/knn_pallas.py:29",
             "max_abs_err": max_err, "n_idx_differ": n_differ, **timed["guided"],
-            "metric_shape": timed["metric"], "cloud_shape": timed["cloud"]}
+            "guided_ddpm_shape": timed["guided DDPM"],
+            "metric_shape": timed["metric"], "cloud_shape": timed["cloud"],
+            "eval_metric_shape": timed["eval metric"], "eval_cloud_shape": timed["eval cloud"]}
 
 
 def phase_kernel_k3() -> dict:

@@ -10,6 +10,7 @@ vertex.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -27,8 +28,11 @@ def _load():
 
         lib = _build.load("nearest_vertex")
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.k2_nearest_vertex.argtypes = [vp, vp, vp, i, i, i, vp]
+        lib.k2_nearest_vertex.argtypes = [vp] * 5 + [i] * 4 + [vp]
         lib.k2_nearest_vertex.restype = i
+        lib.k2_block_vertices.restype = lib.k2_block_points.restype = i
+        if (lib.k2_block_vertices(), lib.k2_block_points()) != (BLOCK_VERTICES, BLOCK_POINTS):
+            raise RuntimeError("K2's blocks differ from launch_plan's")
         lib.k2_error_string.argtypes = [i]
         lib.k2_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -58,6 +62,37 @@ def nearest_vertex_idx_reference(points: torch.Tensor, verts: torch.Tensor, *,
     return torch.cat(out, dim=1)
 
 
+BLOCK_POINTS = 512    # points of one cloud that a K2 CTA owns (128 threads x 4)
+BLOCK_VERTICES = 32   # the kernel's min block: a V split is a multiple of it
+MIN_SPLIT = 1536      # vertices: below this a CTA's set-up and its last phase show
+CTAS_PER_SM = 16      # aimed at before V is split: the SMs even out over many CTAs
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(B: int, P: int, V: int, n_sm: int) -> dict:
+    """How K2 covers B clouds of P points and V vertices on `n_sm` SMs:
+    `point_blocks` CTAs of BLOCK_POINTS points a cloud, and the vertices cut
+    into `splits` ranges of `split_len` (the last one shorter), one CTA per
+    (point block, cloud, range). V is split only while the point blocks
+    alone leave fewer than CTAS_PER_SM CTAs an SM, and never below MIN_SPLIT
+    vertices a range. Pure arithmetic: the kernel takes `split_len` as
+    given. (The constants are the best of a sweep on an H100: see PERF.md.)"""
+    if min(B, P, V, n_sm) < 1:
+        raise ValueError(f"launch_plan takes positive sizes, got {(B, P, V, n_sm)}")
+    point_blocks = -(-P // BLOCK_POINTS)
+    want = -(-CTAS_PER_SM * n_sm // (B * point_blocks))  # splits to fill the card
+    splits = max(1, min(want, V // MIN_SPLIT, 65535))
+    split_len = -(-V // splits)
+    split_len = -(-split_len // BLOCK_VERTICES) * BLOCK_VERTICES
+    return {"point_blocks": point_blocks, "split_len": split_len,
+            "splits": -(-V // split_len)}
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _launch(points: torch.Tensor, verts: torch.Tensor) -> torch.Tensor:
     global launches
     lib = _load()
@@ -67,16 +102,25 @@ def _launch(points: torch.Tensor, verts: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"points on {points.device}, verts on {verts.device}")
     B, P, _ = points.shape
     V = verts.shape[1]
-    if not 1 <= B <= 65535:
-        raise ValueError(f"K2 takes 1 <= B <= 65535 clouds, got B={B}")
-    idx = torch.empty((B, P), dtype=torch.int64, device=points.device)
+    if not (1 <= B <= 65535 and B * P < 2 ** 31 and V < 2 ** 31 // 3):
+        raise ValueError(f"K2 takes 1 <= B <= 65535 clouds, B * P < 2^31 points and "
+                         f"3 V < 2^31, got B={B}, P={P}, V={V}")
+    dev = points.device
+    idx = torch.empty((B, P), dtype=torch.int64, device=dev)
     if P == 0:
         return idx
+    plan = launch_plan(B, P, V, _sm_count(dev))
+    part_d = part_i = None
+    if plan["splits"] > 1:  # each split's best (f32 distance, int32 index), for the combine kernel
+        part = torch.empty((2, plan["splits"], B, P), dtype=torch.float32, device=dev)
+        part_d = part.data_ptr()
+        part_i = part_d + 4 * plan["splits"] * B * P
     pts, vts = points.detach().contiguous(), verts.detach().contiguous()
-    with torch.cuda.device(points.device):
-        stream = torch.cuda.current_stream(points.device).cuda_stream
-        code = lib.k2_nearest_vertex(pts.data_ptr(), vts.data_ptr(),
-                                     idx.data_ptr(), B, P, V, stream)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.k2_nearest_vertex(
+            pts.data_ptr(), vts.data_ptr(), idx.data_ptr(),
+            part_d, part_i, B, P, V, plan["split_len"], stream)
     if code != 0:
         msg = lib.k2_error_string(code).decode()
         raise RuntimeError(f"K2 launch failed: CUDA error {code} ({msg})")
@@ -90,7 +134,8 @@ def nearest_vertex_idx(points: torch.Tensor, verts: torch.Tensor, *,
     [B, P], ties to the lowest index.
 
     A CUDA tensor goes through the kernel (or raises), whatever P and V:
-    the kernel walks V in chunks and holds no tile. A CPU tensor goes
+    the kernel walks V in chunks and holds no tile (`launch_plan` says how
+    it is spread over the card). A CPU tensor goes
     through the plain version, `block_size` points at a time. There is no
     fallback between the two."""
     _check_shapes(points, verts)

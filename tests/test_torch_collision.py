@@ -10,6 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 from jax.experimental.pallas import tpu as pltpu
 
 from egohmr_tpu import collision as jcol
@@ -106,6 +108,116 @@ def test_cpu_wrapper_uses_plain_version_and_counts_nothing():
         k2.nearest_vertex_idx(pts, verts[:1])
     with pytest.raises(ValueError, match="expected"):
         k2.nearest_vertex_idx(pts[..., :2], verts)
+
+
+# the shapes the main paths give K2 (guided DDIM-5 and DDPM-50, the metric and
+# cloud searches at 16 clouds and at 8 images x 5 samples) and a ragged one
+K2_SHAPES = [(64, 1024, 6890), (16, 1024, 6890), (16, 20000, 6890), (16, 6890, 20000),
+             (40, 20000, 6890), (40, 6890, 20000), (3, 777, 431), (1, 5, 7)]
+
+
+def _assert_plan_covers(B, P, V, n_sm):
+    """Every point in exactly one point block, every vertex in exactly one
+    range; ranges are whole min blocks; V is split only to fill the card."""
+    plan = k2.launch_plan(B, P, V, n_sm)
+    blocks, split_len, splits = plan["point_blocks"], plan["split_len"], plan["splits"]
+    assert (blocks - 1) * k2.BLOCK_POINTS < P <= blocks * k2.BLOCK_POINTS
+    assert split_len % k2.BLOCK_VERTICES == 0 and 1 <= splits <= 65535
+    ranges = [(z * split_len, min(V, (z + 1) * split_len)) for z in range(splits)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == V
+    assert all(lo < hi for lo, hi in ranges)
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    if splits > 1:
+        assert split_len >= k2.MIN_SPLIT
+        assert B * blocks * (splits - 1) < k2.CTAS_PER_SM * n_sm
+    return plan
+
+
+@pytest.mark.parametrize("B,P,V", K2_SHAPES)
+def test_launch_plan_covers_the_main_path_shapes(B, P, V):
+    plan = _assert_plan_covers(B, P, V, 132)
+    # the guided shapes leave the card empty without a V split; the B.S=40
+    # metric shape fills it almost by its points alone
+    if (P, V) == (1024, 6890):
+        assert plan["splits"] == 4
+    if (B, P, V) == (40, 20000, 6890):
+        assert plan["splits"] == 2
+    if V < k2.MIN_SPLIT:
+        assert plan["splits"] == 1
+
+
+@settings(max_examples=300, deadline=None, database=None)
+@given(B=st.integers(1, 300), P=st.integers(1, 70000), V=st.integers(1, 70000),
+       n_sm=st.integers(1, 200))
+def test_launch_plan_covers_every_point_and_vertex_once(B, P, V, n_sm):
+    _assert_plan_covers(B, P, V, n_sm)
+
+
+def test_launch_plan_refuses_empty_sizes():
+    for bad in [(0, 5, 5, 132), (1, 0, 5, 132), (1, 5, 0, 132), (1, 5, 5, 0)]:
+        with pytest.raises(ValueError, match="positive"):
+            k2.launch_plan(*bad)
+
+
+def _k2_scheme(pts, verts, plan):
+    """The kernel's search, step by step in PyTorch, on the plain version's
+    own distances: per V range, the min of each block of BLOCK_VERTICES
+    vertices; the first block whose min beats the best so far (strict <);
+    inside it the lowest vertex that attains the min; then over the ranges
+    the lexicographically least (distance, range). The kernel's f32 chain and
+    its near-tie pass are a matter of rounding and are held on the card."""
+    v_sq = torch.sum(verts * verts, dim=-1)[:, None, :]
+    dist = v_sq - 2.0 * torch.matmul(pts, verts.transpose(1, 2))  # [B, P, V]
+    B, P, V = dist.shape
+    blk, inf = k2.BLOCK_VERTICES, float("inf")
+    best_d = torch.full((B, P), inf)
+    best_i = torch.zeros((B, P), dtype=torch.int64)
+    for z in range(plan["splits"]):
+        lo, hi = z * plan["split_len"], min(V, (z + 1) * plan["split_len"])
+        d = torch.nn.functional.pad(dist[..., lo:hi], (0, -(hi - lo) % blk), value=inf)
+        block_min = d.reshape(B, P, -1, blk).amin(-1)
+        run_d = torch.full((B, P), inf)
+        run_blk = torch.zeros((B, P), dtype=torch.int64)
+        for j in range(block_min.shape[-1]):  # blocks ascending, strict <
+            better = block_min[..., j] < run_d
+            run_d = torch.where(better, block_min[..., j], run_d)
+            run_blk = torch.where(better, torch.full_like(run_blk, j), run_blk)
+        inside = torch.gather(d.reshape(B, P, -1, blk), 2,
+                              run_blk[..., None, None].expand(B, P, 1, blk))[:, :, 0]
+        hit = inside == run_d[..., None]
+        first = torch.where(hit, torch.arange(blk), blk).amin(-1)  # the lowest that attains it
+        assert int(first.max()) < blk
+        better = run_d < best_d  # ranges ascending, strict <
+        best_d = torch.where(better, run_d, best_d)
+        best_i = torch.where(better, lo + run_blk * blk + first, best_i)
+    return best_i
+
+
+@pytest.mark.parametrize("ties", ["none", "inside a block", "across blocks", "across splits"])
+def test_kernel_scheme_gives_the_plain_versions_indices(ties):
+    """Block min, one rescan, split V and the lexicographic combine pick
+    what `argmin` picks, also where exact ties are planted: a vertex and its
+    copy in one block, in two blocks of one range, in two ranges."""
+    rng = np.random.RandomState(3)
+    B, P, V = 2, 300, 4000
+    verts = (rng.randn(B, V, 3) * [0.25, 0.5, 0.15]).astype(np.float32)
+    plan = k2.launch_plan(B, P, V, 132)
+    blk, split_len = k2.BLOCK_VERTICES, plan["split_len"]
+    assert plan["splits"] == 2 and split_len % blk == 0
+    src = np.arange(0, split_len - 8 * blk, blk)  # first vertex of a block, in the first range
+    dst = {"none": None, "inside a block": src + 5, "across blocks": src + blk * 7 + 3,
+           "across splits": src + split_len + 11}[ties]
+    if dst is not None:
+        verts[:, dst] = verts[:, src]
+    pts = verts[:, rng.randint(V, size=P)] + 0.05 * rng.randn(B, P, 3).astype(np.float32)
+    if dst is not None:  # points whose nearest vertex is a planted pair
+        pts[:, :len(src)] = verts[:, src] + 1e-3 * rng.randn(B, len(src), 3).astype(np.float32)
+    want = k2.nearest_vertex_idx_reference(T(pts), T(verts))
+    got = _k2_scheme(T(pts), T(verts), plan)
+    np.testing.assert_array_equal(N(got), N(want))
+    if dst is not None:
+        hits = N(want)[:, :len(src)]
+        assert np.isin(hits, src).mean() > 0.9 and not np.isin(hits, dst).any()
 
 
 @pytest.mark.parametrize("P,V,block_size", [(700, 431, 256), (700, 431, 2048),

@@ -22,11 +22,14 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,P", [(2, 64), (3, 4099), (4, 20000)])
+@pytest.mark.parametrize("B,P", [(2, 64), (3, 4099), (4, 20000), (1, 20000), (1, 1),
+                                 (2, 127), (2, 129), (5, 255), (5, 257)])
 def test_k1_matches_plain_version(cuda, B, P):
     """Bar: two bf16 ulps of the largest pooled value (the tensor cores sum
     in another order than cuBLAS's f32 GEMM, and bf16 rounding flips carry
-    through the pooled stages); every launch is counted."""
+    through the pooled stages); every launch is counted. The shapes: small,
+    ragged and full-size clouds, one cloud alone (fewer tiles than SMs at
+    P = 1), and P just below and above a multiple of the 128-point tile."""
     enc = init_random_(ResnetPointnet(512, 256), seed=1).to(cuda).eval()
     pts = torch.randn(B, P, 3, generator=torch.Generator().manual_seed(P)).to(cuda)
     before = k1.launches
@@ -38,6 +41,24 @@ def test_k1_matches_plain_version(cuda, B, P):
     assert (got - ref).abs().max().item() <= 2.0 ** -7 * ref.abs().max().item()
     cos = torch.nn.functional.cosine_similarity(got, ref, dim=-1)
     assert cos.min().item() > 0.9999
+
+
+@pytest.mark.gpu
+def test_k1_prepares_weights_once_and_again_after_a_change(cuda):
+    """Two calls on one model prepare its weights once; after an in-place
+    update the next call prepares anew and computes with the new weights."""
+    enc = init_random_(ResnetPointnet(512, 256), seed=2).to(cuda).eval()
+    pts = torch.randn(2, 1000, 3, generator=torch.Generator().manual_seed(0)).to(cuda)
+    before = k1.preparations
+    a = k1.pointnet_fused_feature(enc, pts)
+    b = k1.pointnet_fused_feature(enc, pts)
+    assert k1.preparations == before + 1 and torch.equal(a, b)
+    with torch.no_grad():
+        enc.block_3.fc_1.weight.mul_(-1.0)
+    c = k1.pointnet_fused_feature(enc, pts)
+    assert k1.preparations == before + 2 and not torch.equal(a, c)
+    ref = k1.pointnet_fused_reference(enc, pts)
+    assert (c - ref).abs().max().item() <= 2.0 ** -7 * ref.abs().max().item()
 
 
 @pytest.mark.gpu
@@ -86,10 +107,24 @@ def test_k2_matches_plain_version(cuda, B, P, V):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,P,V,split", [
+    (16, 1024, 6890, True),     # few points: V is split to fill the card
+    (66, 16500, 3200, False),   # the point blocks fill it: no split though V allows one
+    (3, 777, 431, False),       # V too short to split
+    (2, 100, 7, False),         # V smaller than one min block
+    (2, 3, 5000, True),         # P smaller than one thread's points
+], ids=["split", "filled", "short", "tiny-V", "tiny-P"])
+def test_k2_every_branch_of_the_launch_plan(cuda, B, P, V, split):
+    plan = k2.launch_plan(B, P, V, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert (plan["splits"] > 1) == split
+    _assert_k2_agrees(*_points_near_body(B, P, V, seed=V, device=cuda))
+
+
+@pytest.mark.gpu
 def test_k2_duplicate_vertices_go_to_the_lowest_index(cuda):
-    """Every vertex appears twice (v[j + V/2] == v[j]) across a chunk
-    boundary of the kernel: exact ties, so every index is below V/2 and
-    equals the plain version's."""
+    """Every vertex appears twice (v[j + V/2] == v[j]), the copies in two
+    ranges of the kernel's V split: exact ties, so every index is below V/2
+    and equals the plain version's."""
     pts, half = _points_near_body(2, 1500, 2500, seed=5, device=cuda)
     verts = torch.cat([half, half], dim=1)
     got = k2.nearest_vertex_idx(pts, verts)

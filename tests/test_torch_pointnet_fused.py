@@ -16,6 +16,7 @@ from egohmr_tpu.nn.pointnet import init_pointnet
 from egohmr_tpu.nn.pointnet import pointnet_forward as j_pointnet_forward
 from egohmr_tpu.nn.pointnet_fused import pointnet_forward_fused as j_fused
 from egohmr_tpu_torch import interop
+from egohmr_tpu_torch.nn import cast_params_bf16
 from egohmr_tpu_torch.nn import pointnet_fused as k1
 from egohmr_tpu_torch.nn.pointnet import ResnetPointnet, pointnet_forward
 
@@ -130,6 +131,69 @@ def test_cpu_wrapper_uses_plain_version_and_counts_nothing(setup):
     assert k1.launches == before
     with pytest.raises(ValueError):
         k1.pointnet_fused_feature(enc, x.to("meta"))
+
+
+def test_weight_slices_are_swizzled_as_the_kernel_reads_them():
+    """`_swizzle` cuts [H, K] into K-slices of 64 and puts the 16-byte chunk c
+    (8 bf16) of row n at chunk c ^ (n % 8) of the row's 128 bytes; applying
+    the same permutation again gives the matrix back."""
+    w = torch.arange(256 * 128, dtype=torch.float32).reshape(256, 128).to(torch.bfloat16)
+    s = k1._swizzle(w)
+    assert s.shape == (2, 256, 64) and s.dtype == torch.bfloat16
+    for slc, n, c in [(0, 0, 3), (0, 5, 0), (1, 13, 7), (1, 255, 2)]:
+        want = w[n, slc * 64 + 8 * c: slc * 64 + 8 * c + 8]
+        phys = c ^ (n % 8)
+        assert torch.equal(s[slc, n, 8 * phys: 8 * phys + 8], want)
+    assert torch.equal(k1._unswizzle(s), w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prepared_weights_round_trip(setup, dtype):
+    """What the kernel reads (slices in the order a tile consumes them, the
+    pooled halves transposed, fc_pos as float4 rows, f32 biases), unpacked
+    into a model again, gives the plain version's feature bit for bit: from
+    the f32 model and from its bf16 cast, which prepare the same weight
+    bytes (the cast also rounds the biases, so its feature is its own)."""
+    _, enc, pts = setup
+    model = enc if dtype == torch.float32 else cast_params_bf16(enc)
+    prep = k1.prepare_weights(model)
+    assert [tuple(s.shape) for s in prep.slices] == [(20, 256, 64)] + [(12, 256, 64)] * 3
+    assert all(s.dtype == torch.bfloat16 and s.is_contiguous() for s in prep.slices)
+    assert prep.wpos.shape == (512, 4) and prep.wpos.dtype == torch.float32
+    assert prep.wctx.shape == (3, 2, 256, 256) and prep.wctx.dtype == torch.bfloat16
+    assert prep.b_hidden.shape == prep.b_out.shape == (4, 256)
+    x = torch.tensor(pts)
+    want = k1.pointnet_fused_reference(model, x)
+    got = k1.pointnet_fused_reference(k1.unpack_weights(prep), x)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    for a, b in zip(prep.slices, k1.prepare_weights(enc).slices):
+        assert torch.equal(a, b)
+
+
+def test_weights_are_prepared_once_per_model_and_again_after_a_change(setup):
+    """The cache holds while every parameter is the same storage and
+    version; an in-place update, a load_state_dict and a cast prepare anew,
+    and the new preparation carries the change."""
+    p, _, pts = setup
+    enc = _encoder(p)
+    before = k1.preparations
+    first = k1.prepared_weights(enc)
+    assert k1.prepared_weights(enc) is first and k1.preparations == before + 1
+    with torch.no_grad():
+        enc.block_2.fc_1.weight.mul_(2.0)
+    second = k1.prepared_weights(enc)
+    assert second is not first and k1.preparations == before + 2
+    assert not torch.equal(second.slices[2], first.slices[2])
+    assert torch.equal(second.slices[1], first.slices[1])
+    x = torch.tensor(pts)
+    torch.testing.assert_close(k1.pointnet_fused_reference(k1.unpack_weights(second), x),
+                               k1.pointnet_fused_reference(enc, x), rtol=0, atol=0)
+    enc.load_state_dict(_encoder(p).state_dict())
+    third = k1.prepared_weights(enc)
+    assert k1.preparations == before + 3 and torch.equal(third.slices[2], first.slices[2])
+    assert k1.prepared_weights(enc) is third and k1.preparations == before + 3
+    k1.prepared_weights(cast_params_bf16(enc))  # another model: its own entry
+    assert k1.preparations == before + 4 and k1.prepared_weights(enc) is third
 
 
 @pytest.mark.parametrize("masked", [False, True])
