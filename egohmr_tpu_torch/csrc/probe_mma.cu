@@ -22,75 +22,213 @@
 // reads, so the design keeps everything else out of the R loop.
 //
 // The TPU body holds the whole [M, 256] accumulator (2 MB) on chip and walks
-// the G grid steps one after another on one core. An SM has 256 KB of
-// registers, and the card runs CTAs side by side on 132 SMs, so here a CTA
-// owns 128 whole rows of one chain (whole rows: the glue variant's row scale
-// needs all 256 columns of a row before the next step) and keeps that tile's
-// accumulator in registers across all R steps: 8 warps, each 32 rows x 128
-// columns, 128 registers of accumulator per thread. w (given transposed,
-// [256, 256] as [n][k]) and the CTA's rows of x sit in shared memory for the
-// whole launch, in rows padded so that fragment loads meet no bank conflict;
-// the products are mma.sync m16n8k16 (bf16) and m16n8k32 (int8), the operand
-// fragments plain 32-bit shared-memory loads. At the end a CTA reduces its rows
-// to a [256] partial max; a second small kernel folds the M / 128 partials
-// into out[g]. The grid is (M / 128, G) CTAs, one per SM at a time (shared
-// memory): 512 at M = 2048, G = 32, which is 3.9 waves over 132 SMs.
-// wgmma, TMA and a pipelined operand path are later work.
+// the G grid steps one after another on one core. Here a CTA owns 128 whole
+// rows of one chain (whole rows: the glue variant's row scale needs all 256
+// columns of a row) and the grid is (M / 128, G) CTAs side by side, one per
+// SM at a time. Two warpgroups each own 64 rows x all 256 columns: an
+// m64n256 accumulator of 128 registers a thread (f32 or s32), carried in
+// registers across all R steps. Every product is `wgmma`:
+// m64n256k16.f32.bf16.bf16, 16 k-steps a product, or m64n256k32.s32.s8.s8,
+// 8 k-steps a product; no mma.sync and no library product.
+//
+// Operands. w arrives transposed, [n][k], which is the K-major layout that
+// integer wgmma requires and bf16 wgmma takes. It is staged once per launch
+// into shared memory in 128-byte-swizzled panels of [256 n][128 bytes of k]
+// (the swizzle is applied while staging), and B is read from there by
+// descriptor: the R loop reads nothing from device memory. The CTA's rows of
+// x are staged the same way, in panels of [128 rows][128 bytes]. Where A
+// comes from, per variant:
+//   1 bf16_bare, 3 int8_bare   shared memory, by descriptor: the operand
+//                              never changes, so no thread touches it
+//   4 int8_slice               shared memory, by descriptor, alternating
+//                              between the two staged halves of x2
+//   0 bf16, 2 int8             registers: each k-step's fragment is fetched
+//                              by ldmatrix (a k-step is 32 bytes of a row for
+//                              both types, so one address scheme serves both)
+//                              and perturbed on the way (bf16x2 add, or a
+//                              wrapping bytewise add), two fragments in turn
+//                              so the next is fetched while a product runs.
+//                              Two staged bf16 copies of x (2 x 64 KB) and w
+//                              (128 KB) would overflow the 227 KB a CTA has,
+//                              so the perturbation happens in registers.
+//   5 int8_glue                registers, made by the glue itself (below)
+//
+// The glue variant keeps the activation in registers, in the accumulator's
+// layout: a thread holds rows g and g + 8 of its warp's 16 and, of each
+// 32-wide k-block, columns {8j + 2t, 8j + 2t + 1 : j = 0..3} (g = lane / 4,
+// t = lane % 4). A row's 256 values sit in one quad of lanes, so its max|x|
+// is a 4-lane shuffle; no __syncthreads and no shared-memory round trip in
+// the step. Each step quantises x straight into the 32 int8 A registers of
+// the whole depth, lets x die, runs the 8 wgmma k-steps into a fresh s32
+// accumulator and dequantises in place into the next x. The int8 A fragment
+// wants k = 4t..4t+3 and 16 + 4t..16 + 4t + 3 of a k-block, not the columns
+// the thread holds; the wrapper permutes w's k index within each 32-wide
+// block once (probe_int8_mma.py:glue_k_order) so that the thread's columns,
+// in fragment order, meet the rows of w they multiply. Integer sums are
+// exact, so the result is the same bit for bit. The glue keeps the plain
+// version's arithmetic in FMA-pipe instructions: x / s correctly rounded
+// from the row's reciprocal (div_rn), round half to even and int -> float
+// by adding 1.5 x 2^23 (q8, i2f), the dequantisation's products in the
+// plain version's order. (IEEE division proper, with its slow-path branch
+// per element, and the quarter-rate F2I and I2F made the step 5x slower.)
+// With two warpgroups, one's glue runs on the CUDA cores while the other's
+// wgmma is in flight.
+//
+// Read on an NVIDIA H100 80GB HBM3 at 700 W, per product at G = 32, M =
+// 2048: bf16 0.29 us (93-94% of the bf16 peak), int8 0.14-0.15 us (91-100%
+// of the int8 peak; the published peaks assume 1,830 MHz and the SMs run
+// up to 1,980), the glue variant 0.45 us, set by the glue.
+//
+// At the end each warp reduces its rows to column maxima, a CTA folds its 8
+// warps into a [256] partial max, and a second small kernel folds the
+// M / 128 partials into out[g]; both are outside the probe's timed
+// difference, which takes (t(R2) - t(R1)).
 //
 // The entry point returns cudaGetLastError() (0 on success).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr int KD = 256;        // K, the products' depth
 constexpr int ND = 256;        // N, their width
 constexpr int TM = 128;        // rows of one chain per CTA
-constexpr int THREADS = 256;   // 8 warps: 4 along rows x 2 along columns
-constexpr int LD16 = KD + 8;   // bf16 elements per padded shared-memory row
-constexpr int LD8 = KD + 16;   // int8 bytes per padded shared-memory row
+constexpr int THREADS = 256;   // two warpgroups of 64 rows
+constexpr int WARPS = THREADS / 32;
+constexpr int PANEL = 128;     // bytes of a row in one swizzled panel
+constexpr int RED_BYTES = WARPS * ND * 4;
 
-typedef __nv_bfloat16 bf16;
+// ------------------------------------------------------------------ helpers
 
-constexpr size_t SMEM_BF16 =
-    sizeof(bf16) * (TM + ND) * LD16 + sizeof(float) * 4 * ND;
-constexpr size_t SMEM_INT8 = (size_t)(TM + ND) * LD8 + sizeof(int) * 4 * ND;
-constexpr size_t SMEM_SLICE = (size_t)(2 * TM + ND) * LD8 + sizeof(int) * 4 * ND;
-constexpr size_t SMEM_GLUE =
-    (size_t)(TM + ND) * LD8 + sizeof(float) * (4 * ND + ND + 2 * TM);
-
-// Per warp: tile rows wm*32 + [0, 32) and columns wn*128 + [0, 128).
-// acc[mi][ni][r] holds row wm*32 + mi*16 + g (+8 for r >= 2) and column
-// wn*128 + ni*8 + 2t + (r & 1), with g = lane / 4 and t = lane % 4 (the
-// accumulator layout of both mma shapes).
-struct Lane {
-  int tid, wm, wn, g, t;
-  __device__ Lane() {
-    tid = threadIdx.x;
-    const int lane = tid & 31, warp = tid >> 5;
-    wm = warp >> 1, wn = warp & 1, g = lane >> 2, t = lane & 3;
-  }
-};
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void mma_int8(int* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+}
+
+// `rows` rows of `row_bytes` bytes (a multiple of 128) from device memory
+// into panels of [rows][128 bytes], panel p holding bytes 128p .. 128p + 127
+// of every row, the 16-byte chunk c of row r at chunk c ^ (r % 8): the
+// 128-byte swizzle that wgmma descriptors and ldmatrix read without bank
+// conflicts.
+__device__ __forceinline__ void stage_swizzled(unsigned char* dst,
+                                               const unsigned char* src,
+                                               int rows, int row_bytes) {
+  const int chunks = row_bytes / 16;
+  for (int i = threadIdx.x; i < rows * chunks; i += THREADS) {
+    const int r = i / chunks, c = i % chunks;
+    const uint4 v = *reinterpret_cast<const uint4*>(src + (size_t)r * row_bytes + c * 16);
+    *reinterpret_cast<uint4*>(dst + (size_t)(c / 8) * rows * PANEL + r * PANEL +
+                              (((c % 8) ^ (r & 7)) << 4)) = v;
+  }
+}
+
+// shared memory written by ordinary stores, made visible to wgmma's reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&r)[4]) {
   asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {  // until at most N groups are in flight
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// wgmma reads its register operands after the instruction has left the
+// warp: these keep a register allocated, and its later uses in place, until
+// the wait that ends the read
+__device__ __forceinline__ void keep(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
+__device__ __forceinline__ void keep(int& r) { asm volatile("" : "+r"(r)::"memory"); }
+__device__ __forceinline__ void keep(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+
+// The descriptor of a K-major operand in a 128-byte-swizzled panel: start
+// address, leading offset 1 (unused when swizzled), 1024 bytes between
+// 8-row groups, layout type 1 (128-byte swizzle); in units of 16 bytes. The
+// k-step kk of a panel (32 bytes of each row) starts at + 2 kk.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// The 128 accumulator operands of an m64n256 wgmma. d[4j + r] holds row g
+// (+8 for r >= 2) of the warp's 16 and column 8j + 2t + (r & 1).
+#define K3_D8(C, i) C(d[i]), C(d[i + 1]), C(d[i + 2]), C(d[i + 3]), \
+                    C(d[i + 4]), C(d[i + 5]), C(d[i + 6]), C(d[i + 7])
+#define K3_D128(C) K3_D8(C, 0), K3_D8(C, 8), K3_D8(C, 16), K3_D8(C, 24),      \
+                   K3_D8(C, 32), K3_D8(C, 40), K3_D8(C, 48), K3_D8(C, 56),    \
+                   K3_D8(C, 64), K3_D8(C, 72), K3_D8(C, 80), K3_D8(C, 88),    \
+                   K3_D8(C, 96), K3_D8(C, 104), K3_D8(C, 112), K3_D8(C, 120)
+#define K3_RW_F(v) "+f"(v)
+#define K3_RW_R(v) "+r"(v)
+#define K3_W_R(v) "=r"(v)
+#define K3_DREGS                                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "  \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "  \
+  "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "  \
+  "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, "  \
+  "%87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, "    \
+  "%103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, "   \
+  "%117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}"
+
+// d = (scale_d ? d : 0) + A @ B^T, asynchronously, the warpgroup's four
+// warps together. With a descriptor A (64 x k-step) is read from shared
+// memory; with registers it is the fragment of 16 rows per warp: a0 row g, a1
+// row g + 8, a2 and a3 the same rows 16 bytes of k further, each register 4
+// bytes of k at 4t. B is K-major (transpose flag 0).
+#define K3_WGMMA(SHAPE, A, B, TAIL) \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, " TAIL ", 0;\nwgmma.mma_async.sync.aligned." SHAPE " " K3_DREGS ", " A ", " B ", p"
+__device__ __forceinline__ void mma_bf16(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(K3_WGMMA("m64n256k16.f32.bf16.bf16", "%128", "%129", "%130") ", 1, 1, 0, 0;\n}\n"
+               : K3_D128(K3_RW_F)
+               : "l"(da), "l"(db), "r"(1));
+}
+__device__ __forceinline__ void mma_bf16(float (&d)[128], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(K3_WGMMA("m64n256k16.f32.bf16.bf16", "{%128, %129, %130, %131}", "%132",
+                        "%133") ", 1, 1, 0;\n}\n"
+               : K3_D128(K3_RW_F)
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+__device__ __forceinline__ void mma_s8(int (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(K3_WGMMA("m64n256k32.s32.s8.s8", "%128", "%129", "%130") ";\n}\n"
+               : K3_D128(K3_RW_R)
+               : "l"(da), "l"(db), "r"(1));
+}
+__device__ __forceinline__ void mma_s8(int (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(K3_WGMMA("m64n256k32.s32.s8.s8", "{%128, %129, %130, %131}", "%132",
+                        "%133") ";\n}\n"
+               : K3_D128(K3_RW_R)
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+// d = A @ B^T: the first k-step of a fresh sum. d is written, not read, so
+// whatever the registers held before (the glue's dead activation) may share
+// them.
+__device__ __forceinline__ void mma_s8_first(int (&d)[128], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(K3_WGMMA("m64n256k32.s32.s8.s8", "{%128, %129, %130, %131}", "%132",
+                        "%133") ";\n}\n"
+               : K3_D128(K3_W_R)
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(0));
 }
 
 __device__ __forceinline__ uint32_t add_bf16x2(uint32_t a, uint32_t b) {
@@ -102,280 +240,287 @@ __device__ __forceinline__ uint32_t add_bf16x2(uint32_t a, uint32_t b) {
 __device__ __forceinline__ float tmax(float a, float b) { return fmaxf(a, b); }
 __device__ __forceinline__ int tmax(int a, int b) { return max(a, b); }
 
-// Copy `rows` rows of `row_bytes` bytes (a multiple of 16) from device memory
-// into shared-memory rows of `ld_bytes` bytes.
-__device__ __forceinline__ void stage_rows(unsigned char* dst, int ld_bytes,
-                                           const unsigned char* src,
-                                           int row_bytes, int rows) {
-  const int per_row = row_bytes / 16;
-  for (int i = threadIdx.x; i < rows * per_row; i += THREADS) {
-    const int r = i / per_row, c = (i % per_row) * 16;
-    *reinterpret_cast<uint4*>(dst + (size_t)r * ld_bytes + c) =
-        *reinterpret_cast<const uint4*>(src + (size_t)r * row_bytes + c);
-  }
-}
-
-// acc += op(Xs) @ Ws^T over the whole depth, bf16: Xs [TM][LD16], Ws
-// [ND][LD16] ([n][k]); `one` (bf16x2 of 1.0 or 0.0) is added to every operand
-// element when PERTURB.
-template <bool PERTURB>
-__device__ __forceinline__ void product_bf16(float (&acc)[2][16][4],
-                                             const bf16* Xs, const bf16* Ws,
-                                             uint32_t one, const Lane& l) {
-#pragma unroll 2
-  for (int ks = 0; ks < KD; ks += 16) {
-    uint32_t a[2][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      const bf16* p = Xs + (l.wm * 32 + mi * 16 + l.g) * LD16 + ks + 2 * l.t;
-      a[mi][0] = *reinterpret_cast<const uint32_t*>(p);
-      a[mi][1] = *reinterpret_cast<const uint32_t*>(p + 8 * LD16);
-      a[mi][2] = *reinterpret_cast<const uint32_t*>(p + 8);
-      a[mi][3] = *reinterpret_cast<const uint32_t*>(p + 8 * LD16 + 8);
-      if (PERTURB) {
-#pragma unroll
-        for (int r = 0; r < 4; ++r) a[mi][r] = add_bf16x2(a[mi][r], one);
-      }
-    }
-#pragma unroll
-    for (int ni = 0; ni < 16; ++ni) {
-      const bf16* q = Ws + (l.wn * 128 + ni * 8 + l.g) * LD16 + ks + 2 * l.t;
-      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(q);
-      const uint32_t b1 = *reinterpret_cast<const uint32_t*>(q + 8);
-      mma_bf16(acc[0][ni], a[0], b0, b1);
-      mma_bf16(acc[1][ni], a[1], b0, b1);
-    }
-  }
-}
-
-// The same for int8: Xs [TM][LD8], Ws [ND][LD8]; `one` (0x01010101 or 0) is
-// added to every operand byte, wrapping, when PERTURB.
-template <bool PERTURB>
-__device__ __forceinline__ void product_int8(int (&acc)[2][16][4],
-                                             const int8_t* Xs,
-                                             const int8_t* Ws, uint32_t one,
-                                             const Lane& l) {
-#pragma unroll 2
-  for (int ks = 0; ks < KD; ks += 32) {
-    uint32_t a[2][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      const int8_t* p = Xs + (l.wm * 32 + mi * 16 + l.g) * LD8 + ks + 4 * l.t;
-      a[mi][0] = *reinterpret_cast<const uint32_t*>(p);
-      a[mi][1] = *reinterpret_cast<const uint32_t*>(p + 8 * LD8);
-      a[mi][2] = *reinterpret_cast<const uint32_t*>(p + 16);
-      a[mi][3] = *reinterpret_cast<const uint32_t*>(p + 8 * LD8 + 16);
-      if (PERTURB) {
-#pragma unroll
-        for (int r = 0; r < 4; ++r) a[mi][r] = __vadd4(a[mi][r], one);
-      }
-    }
-#pragma unroll
-    for (int ni = 0; ni < 16; ++ni) {
-      const int8_t* q = Ws + (l.wn * 128 + ni * 8 + l.g) * LD8 + ks + 4 * l.t;
-      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(q);
-      const uint32_t b1 = *reinterpret_cast<const uint32_t*>(q + 16);
-      mma_int8(acc[0][ni], a[0], b0, b1);
-      mma_int8(acc[1][ni], a[1], b0, b1);
-    }
-  }
-}
-
-// partial_row[c] = max over the CTA's TM rows of column c; red is [4][ND].
+// partial_row[c] = max over the CTA's TM rows of column c; red is [WARPS][ND]
 template <typename T>
-__device__ __forceinline__ void store_colmax(const T (&v)[2][16][4], T* red,
-                                             T* __restrict__ partial_row,
-                                             const Lane& l) {
+__device__ __forceinline__ void store_colmax(const T (&v)[128], T* red,
+                                             T* __restrict__ partial_row) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int ni = 0; ni < 16; ++ni) {
-    const int c = l.wn * 128 + ni * 8 + 2 * l.t;
-    T m0 = tmax(tmax(v[0][ni][0], v[0][ni][2]), tmax(v[1][ni][0], v[1][ni][2]));
-    T m1 = tmax(tmax(v[0][ni][1], v[0][ni][3]), tmax(v[1][ni][1], v[1][ni][3]));
-    // reduce over the 8 lanes that share t (the warp's 32 rows)
+  for (int j = 0; j < 32; ++j) {
+    T m0 = tmax(v[4 * j], v[4 * j + 2]), m1 = tmax(v[4 * j + 1], v[4 * j + 3]);
+    // over the 8 lanes that share t: the warp's 16 rows
 #pragma unroll
     for (int off = 4; off < 32; off <<= 1) {
       m0 = tmax(m0, __shfl_xor_sync(0xffffffffu, m0, off));
       m1 = tmax(m1, __shfl_xor_sync(0xffffffffu, m1, off));
     }
-    if (l.g == 0) {
-      red[l.wm * ND + c] = m0;
-      red[l.wm * ND + c + 1] = m1;
+    if (g == 0) {
+      red[warp * ND + 8 * j + 2 * t] = m0;
+      red[warp * ND + 8 * j + 2 * t + 1] = m1;
     }
   }
   __syncthreads();
-  for (int c = l.tid; c < ND; c += THREADS)
-    partial_row[c] = tmax(tmax(red[c], red[ND + c]),
-                          tmax(red[2 * ND + c], red[3 * ND + c]));
+  for (int c = threadIdx.x; c < ND; c += THREADS) {
+    T m = red[c];
+#pragma unroll
+    for (int w = 1; w < WARPS; ++w) m = tmax(m, red[w * ND + c]);
+    partial_row[c] = m;
+  }
 }
 
-template <typename T>
-__device__ __forceinline__ void zero(T (&acc)[2][16][4]) {
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 16; ++ni)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0;
-}
+// ------------------------------------------------------- variants 0 to 4
 
-// Variants 0 and 1. x [M, KD] bf16, wt [ND, KD] bf16, partial
-// [G, M / TM, ND] f32; grid (M / TM, G).
-template <bool PERTURB>
-__global__ void __launch_bounds__(THREADS, 1) bf16_kernel(
-    const bf16* __restrict__ x, const bf16* __restrict__ wt, int R,
-    float* __restrict__ partial) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Xs = reinterpret_cast<bf16*>(smem);                  // [TM][LD16]
-  bf16* Ws = Xs + TM * LD16;                                 // [ND][LD16]
-  float* red = reinterpret_cast<float*>(Ws + ND * LD16);     // [4][ND]
-  const Lane l;
-  stage_rows(reinterpret_cast<unsigned char*>(Xs), LD16 * 2,
-             reinterpret_cast<const unsigned char*>(x + (size_t)blockIdx.x * TM * KD),
-             KD * 2, TM);
-  stage_rows(reinterpret_cast<unsigned char*>(Ws), LD16 * 2,
-             reinterpret_cast<const unsigned char*>(wt), KD * 2, ND);
-  __syncthreads();
-
-  float acc[2][16][4];
-  zero(acc);
-  for (int i = 0; i < R; ++i)
-    product_bf16<PERTURB>(acc, Xs, Ws, (i & 1) ? 0x3F803F80u : 0u, l);
-  store_colmax(acc, red,
-               partial + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * ND, l);
-}
-
-// Variants 2, 3 and 4. x [M, KD] int8 (MODE 4: [2M, KD]), wt [ND, KD] int8,
-// partial [G, M / TM, ND] int32.
 template <int MODE>
-__global__ void __launch_bounds__(THREADS, 1) int8_kernel(
-    const int8_t* __restrict__ x, const int8_t* __restrict__ wt, int M, int R,
-    int* __restrict__ partial) {
-  constexpr int HALVES = MODE == 4 ? 2 : 1;
-  extern __shared__ __align__(16) unsigned char smem[];
-  int8_t* Xs = reinterpret_cast<int8_t*>(smem);              // [HALVES][TM][LD8]
-  int8_t* Ws = Xs + HALVES * TM * LD8;                       // [ND][LD8]
-  int* red = reinterpret_cast<int*>(Ws + ND * LD8);          // [4][ND]
-  const Lane l;
-  for (int h = 0; h < HALVES; ++h)
-    stage_rows(reinterpret_cast<unsigned char*>(Xs + h * TM * LD8), LD8,
-               reinterpret_cast<const unsigned char*>(
-                   x + ((size_t)h * M + (size_t)blockIdx.x * TM) * KD),
-               KD, TM);
-  stage_rows(reinterpret_cast<unsigned char*>(Ws), LD8,
-             reinterpret_cast<const unsigned char*>(wt), KD, ND);
-  __syncthreads();
+struct Pure {
+  static constexpr bool BF16 = MODE < 2;
+  static constexpr bool REG_A = MODE == 0 || MODE == 2;   // perturbed: A in registers
+  static constexpr int HALVES = MODE == 4 ? 2 : 1;
+  static constexpr int ROW_BYTES = BF16 ? KD * 2 : KD;
+  static constexpr int KSTEPS = ROW_BYTES / 32;            // 32 bytes of k a step
+  static constexpr int W_BYTES = ND * ROW_BYTES;
+  static constexpr int X_BYTES = TM * ROW_BYTES;
+  static constexpr int OFF_X = W_BYTES;
+  static constexpr int OFF_RED = OFF_X + HALVES * X_BYTES;
+  static constexpr size_t SMEM = OFF_RED + RED_BYTES + 1024;  // + alignment slack
+  typedef typename std::conditional<BF16, float, int>::type Acc;
+};
 
-  int acc[2][16][4];
-  zero(acc);
-  for (int i = 0; i < R; ++i) {
-    const int8_t* Xi = MODE == 4 ? Xs + (i & 1) * TM * LD8 : Xs;
-    product_int8<MODE == 2>(acc, Xi, Ws, (i & 1) ? 0x01010101u : 0u, l);
-  }
-  store_colmax(acc, red,
-               partial + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * ND, l);
+// the A fragment of k-step kk for this warp's 16 rows from the swizzled
+// panels at xs: matrices (rows 0-7, bytes 0-15), (rows 8-15, bytes 0-15),
+// (rows 0-7, bytes 16-31), (rows 8-15, bytes 16-31) of the k-step
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], uint32_t xs, int row0, int lane,
+                                       int kk) {
+  const int m = lane >> 3, r = lane & 7;
+  const int row = row0 + (m & 1) * 8 + r, chunk = (kk % 4) * 2 + (m >> 1);
+  ldmatrix_x4(xs + (kk / 4) * TM * PANEL + row * PANEL + ((chunk ^ r) << 4), a);
 }
 
-// Variant 5. x [M, KD] f32 (KD == ND: the result is the next operand), wt
-// [ND, KD] int8, sw [ND] f32, partial [G, M / TM, ND] f32.
-__global__ void __launch_bounds__(THREADS, 1) glue_kernel(
-    const float* __restrict__ x, const int8_t* __restrict__ wt,
-    const float* __restrict__ sw, int R, float* __restrict__ partial) {
-  static_assert(KD == ND, "the glue variant feeds its result back");
-  extern __shared__ __align__(16) unsigned char smem[];
-  int8_t* Xq = reinterpret_cast<int8_t*>(smem);              // [TM][LD8]
-  int8_t* Ws = Xq + TM * LD8;                                // [ND][LD8]
-  float* red = reinterpret_cast<float*>(Ws + ND * LD8);      // [4][ND]
-  float* sws = red + 4 * ND;                                 // [ND]
-  float* rmax = sws + ND;                                    // [2][TM]
-  const Lane l;
-  stage_rows(reinterpret_cast<unsigned char*>(Ws), LD8,
-             reinterpret_cast<const unsigned char*>(wt), KD, ND);
-  for (int c = l.tid; c < ND; c += THREADS) sws[c] = sw[c];
+template <bool BF16>
+__device__ __forceinline__ void perturb(uint32_t (&a)[4], uint32_t one) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) a[i] = BF16 ? add_bf16x2(a[i], one) : __vadd4(a[i], one);
+}
 
-  // the activation, in the accumulator's layout
-  float xv[2][16][4];
-  const float* xt = x + (size_t)blockIdx.x * TM * KD;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 16; ++ni) {
-      const int row = l.wm * 32 + mi * 16 + l.g;
-      const int col = l.wn * 128 + ni * 8 + 2 * l.t;
-      const float2 lo = *reinterpret_cast<const float2*>(xt + (size_t)row * KD + col);
-      const float2 hi = *reinterpret_cast<const float2*>(xt + (size_t)(row + 8) * KD + col);
-      xv[mi][ni][0] = lo.x, xv[mi][ni][1] = lo.y;
-      xv[mi][ni][2] = hi.x, xv[mi][ni][3] = hi.y;
-    }
+// x [M, KD] (MODE 4: [2M, KD]) bf16 or int8, wt [ND, KD] of the same type,
+// partial [G, M / TM, ND] f32 or int32; grid (M / TM, G).
+template <int MODE>
+__global__ void __launch_bounds__(THREADS, 1) pure_kernel(
+    const unsigned char* __restrict__ x, const unsigned char* __restrict__ wt, int M,
+    int R, void* __restrict__ partial) {
+  typedef Pure<MODE> P;
+  typedef typename P::Acc Acc;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const uint32_t sbase = smem_u32(smem);
+  stage_swizzled(smem, wt, ND, P::ROW_BYTES);
+  for (int h = 0; h < P::HALVES; ++h)
+    stage_swizzled(smem + P::OFF_X + h * P::X_BYTES,
+                   x + ((size_t)h * M + (size_t)blockIdx.x * TM) * P::ROW_BYTES, TM,
+                   P::ROW_BYTES);
+  fence_proxy_async();
+  __syncthreads();
 
-  for (int i = 0; i < R; ++i) {
-    // per-row max |x|: over this thread's columns, the 4 lanes of a row, then
-    // the two warps that share the row
-    float s[2][2];
+  const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31;
+  const int row0 = wg * 64 + ((threadIdx.x >> 5) & 3) * 16;  // the warp's first row
+  const uint32_t xs = sbase + P::OFF_X;
+  auto b_desc = [&](int kk) {
+    return sw128_desc(sbase + (kk / 4) * ND * PANEL) + 2 * (kk % 4);
+  };
+  Acc acc[128];
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      float m0 = 0.f, m1 = 0.f;
-#pragma unroll
-      for (int ni = 0; ni < 16; ++ni) {
-        m0 = fmaxf(m0, fmaxf(fabsf(xv[mi][ni][0]), fabsf(xv[mi][ni][1])));
-        m1 = fmaxf(m1, fmaxf(fabsf(xv[mi][ni][2]), fabsf(xv[mi][ni][3])));
-      }
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
-        m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
-      }
-      if (l.t == 0) {
-        const int row = l.wm * 32 + mi * 16 + l.g;
-        rmax[l.wn * TM + row] = m0;
-        rmax[l.wn * TM + row + 8] = m1;
-      }
+  for (int i = 0; i < 128; ++i) acc[i] = 0;
+
+  if constexpr (P::REG_A) {
+    // the perturbation of step i: bf16 1.0 or 0.0 in each half, or a byte
+    // of 1 or 0 in each of the four
+    auto one = [](int i) -> uint32_t {
+      return (i & 1) ? (P::BF16 ? 0x3F803F80u : 0x01010101u) : 0u;
+    };
+    uint32_t a[2][4];
+    if (R > 0) {
+      load_a(a[0], xs, row0, lane, 0);
+      perturb<P::BF16>(a[0], one(0));
     }
-    __syncthreads();  // also: every warp is done with the last step's Xq
+    for (int i = 0; i < R; ++i) {
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
+      for (int kk = 0; kk < P::KSTEPS; ++kk) {
+        wgmma_fence();
+        if constexpr (P::BF16) mma_bf16(acc, a[kk & 1], b_desc(kk));
+        else mma_s8(acc, a[kk & 1], b_desc(kk));
+        wgmma_commit();
+        wgmma_wait<1>();  // k-step kk - 1 is done: its fragment is free
+        uint32_t (&next)[4] = a[(kk + 1) & 1];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = l.wm * 32 + mi * 16 + l.g + 8 * h;
-        s[mi][h] = fmaxf(fmaxf(rmax[row], rmax[TM + row]) / 127.0f, 1e-8f);
-      }
-    // quantise: round half to even, two int8 per 16-bit store
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 16; ++ni) {
-        const int row = l.wm * 32 + mi * 16 + l.g;
-        const int col = l.wn * 128 + ni * 8 + 2 * l.t;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int q0 = (int)rintf(xv[mi][ni][2 * h] / s[mi][h]);
-          const int q1 = (int)rintf(xv[mi][ni][2 * h + 1] / s[mi][h]);
-          *reinterpret_cast<uint16_t*>(Xq + (row + 8 * h) * LD8 + col) =
-              (uint16_t)((q0 & 0xFF) | ((q1 & 0xFF) << 8));
+        for (int r = 0; r < 4; ++r) keep(next[r]);
+        if (kk + 1 < P::KSTEPS) {
+          load_a(next, xs, row0, lane, kk + 1);
+          perturb<P::BF16>(next, one(i));
+        } else if (i + 1 < R) {  // KSTEPS is even: the next product starts in a[0]
+          load_a(next, xs, row0, lane, 0);
+          perturb<P::BF16>(next, one(i + 1));
         }
       }
-    __syncthreads();  // Xq is whole; rmax may be overwritten after this
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      keep(a[0][r]);
+      keep(a[1][r]);
+    }
+  } else {
+    const uint32_t xa = xs + wg * 64 * PANEL;  // the warpgroup's 64 rows
+    for (int i = 0; i < R; ++i) {
+      const uint32_t xh = xa + (P::HALVES == 2 ? (i & 1) * P::X_BYTES : 0);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < P::KSTEPS; ++kk) {
+        const uint64_t da = sw128_desc(xh + (kk / 4) * TM * PANEL) + 2 * (kk % 4);
+        if constexpr (P::BF16) mma_bf16(acc, da, b_desc(kk));
+        else mma_s8(acc, da, b_desc(kk));
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // one product in flight while the next is issued
+    }
+    wgmma_wait<0>();
+  }
+#pragma unroll
+  for (int i = 0; i < 128; ++i) keep(acc[i]);
+  store_colmax(acc, reinterpret_cast<Acc*>(smem + P::OFF_RED),
+               reinterpret_cast<Acc*>(partial) +
+                   ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * ND);
+}
 
-    int acc[2][16][4];
-    zero(acc);
-    product_int8<false>(acc, Xq, Ws, 0u, l);
+// -------------------------------------------------------------- variant 5
+
+constexpr int GLUE_OFF_SW = ND * KD;               // after w's 64 KB
+constexpr int GLUE_OFF_RED = GLUE_OFF_SW + ND * 4;
+constexpr size_t SMEM_GLUE = GLUE_OFF_RED + RED_BYTES + 1024;
+
+constexpr float RINT_MAGIC = 12582912.0f;  // 1.5 x 2^23
+constexpr int RINT_MAGIC_BITS = 0x4B400000;
+
+// a / b rounded to nearest even, from rb = 1 / b rounded to nearest
+// (Markstein: q = a rb lies within an ulp of a / b, the residual a - q b is
+// exact by FMA, and q + residual x rb rounds to a / b), for a quotient that
+// neither overflows nor underflows: three FMA-pipe instructions in place of
+// a division's reciprocal and its slow-path branch
+__device__ __forceinline__ float div_rn(float a, float b, float rb) {
+  const float q = __fmul_rn(a, rb);
+  return __fmaf_rn(__fmaf_rn(-q, b, a), rb, q);
+}
+
+// int8(rint(v / s)) in the low byte: adding 1.5 x 2^23 rounds any |q| < 2^22
+// to an integer, half to even, and leaves it in the float's low mantissa
+// bits as two's complement (a full-rate add in place of a quarter-rate F2I)
+__device__ __forceinline__ uint32_t q8(float v, float s, float rs) {
+  return __float_as_uint(__fadd_rn(div_rn(v, s, rs), RINT_MAGIC));
+}
+
+__device__ __forceinline__ uint32_t quant4(float v0, float v1, float v2, float v3, float s,
+                                           float rs) {
+  return __byte_perm(__byte_perm(q8(v0, s, rs), q8(v1, s, rs), 0x0040),
+                     __byte_perm(q8(v2, s, rs), q8(v3, s, rs), 0x0040), 0x5410);
+}
+
+// f32(i), exact for |i| < 2^22 (an int8 product of depth 256 is below
+// 256 x 128 x 128 = 2^22): the same trick backwards, in place of an I2F
+__device__ __forceinline__ float i2f(int i) {
+  return __fsub_rn(__int_as_float(i + RINT_MAGIC_BITS), RINT_MAGIC);
+}
+
+// x [M, KD] f32 (KD == ND: the result is the next operand), wt [ND, KD]
+// int8 with k permuted within each 32-wide block (glue_k_order), sw [ND]
+// f32, partial [G, M / TM, ND] f32.
+__global__ void __launch_bounds__(THREADS, 1) glue_kernel(
+    const float* __restrict__ x, const unsigned char* __restrict__ wt,
+    const float* __restrict__ sw, int R, float* __restrict__ partial) {
+  static_assert(KD == ND, "the glue variant feeds its result back");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const uint32_t sbase = smem_u32(smem);
+  float* sws = reinterpret_cast<float*>(smem + GLUE_OFF_SW);
+  stage_swizzled(smem, wt, ND, KD);
+  // sw / 16: scaling by a power of two commutes with rounding, so
+  // (f32(acc) s) (sw / 16) is the plain version's ((f32(acc) s) sw) / 16
+  // bit for bit (no product here is near the subnormal range)
+  for (int c = threadIdx.x; c < ND; c += THREADS) sws[c] = sw[c] * 0.0625f;
+  fence_proxy_async();
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  const int row = blockIdx.x * TM + (threadIdx.x >> 7) * 64 +
+                  ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);  // and row + 8
+  // the activation, in the accumulator's layout
+  float xv[128];
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const float2 lo = *reinterpret_cast<const float2*>(x + (size_t)row * KD + 8 * j + 2 * t);
+    const float2 hi =
+        *reinterpret_cast<const float2*>(x + (size_t)(row + 8) * KD + 8 * j + 2 * t);
+    xv[4 * j] = lo.x, xv[4 * j + 1] = lo.y, xv[4 * j + 2] = hi.x, xv[4 * j + 3] = hi.y;
+  }
+
+  for (int i = 0; i < R; ++i) {
+    // per-row max |x|: this thread's 64 columns, then the quad's 4 lanes
+    float m0 = 0.f, m1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      m0 = fmaxf(m0, fmaxf(fabsf(xv[4 * j]), fabsf(xv[4 * j + 1])));
+      m1 = fmaxf(m1, fmaxf(fabsf(xv[4 * j + 2]), fabsf(xv[4 * j + 3])));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+    }
+    const float s0 = fmaxf(__fdiv_rn(m0, 127.0f), 1e-8f);
+    const float s1 = fmaxf(__fdiv_rn(m1, 127.0f), 1e-8f);
+    const float r0 = __frcp_rn(s0), r1 = __frcp_rn(s1);
+
+    // quantise into the A fragments of all 8 k-steps: k-block kk holds the
+    // groups j = 4kk .. 4kk + 3; register 0 (row g) takes groups 4kk and
+    // 4kk + 1, register 2 groups 4kk + 2 and 4kk + 3, registers 1 and 3 the
+    // same of row g + 8; w's k is permuted to match
+    uint32_t a[8][4];
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float* p = xv + 16 * kk + 8 * h;  // groups 4kk + 2h, 4kk + 2h + 1
+        a[kk][2 * h] = quant4(p[0], p[1], p[4], p[5], s0, r0);
+        a[kk][2 * h + 1] = quant4(p[2], p[3], p[6], p[7], s1, r1);
+      }
+    }
+
+    int acc[128];
+    wgmma_fence();
+    mma_s8_first(acc, a[0], sw128_desc(sbase));
+#pragma unroll
+    for (int kk = 1; kk < 8; ++kk)
+      mma_s8(acc, a[kk], sw128_desc(sbase + (kk / 4) * ND * PANEL) + 2 * (kk % 4));
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) keep(a[kk][r]);
+#pragma unroll
+    for (int c = 0; c < 128; ++c) keep(acc[c]);
 
     // dequantise, rescale, clip: the next step's activation
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
+    for (int j = 0; j < 32; ++j) {
+      const float2 c = *reinterpret_cast<const float2*>(sws + 8 * j + 2 * t);
 #pragma unroll
-      for (int ni = 0; ni < 16; ++ni) {
-        const float2 c = *reinterpret_cast<const float2*>(
-            sws + l.wn * 128 + ni * 8 + 2 * l.t);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const float deq = (float)acc[mi][ni][r] * s[mi][r >> 1] * ((r & 1) ? c.y : c.x);
-          xv[mi][ni][r] = fminf(fmaxf(deq * 0.0625f, -2.0f), 2.0f);
-        }
+      for (int r = 0; r < 4; ++r) {
+        const float deq = i2f(acc[4 * j + r]) * (r < 2 ? s0 : s1) * ((r & 1) ? c.y : c.x);
+        xv[4 * j + r] = fminf(fmaxf(deq, -2.0f), 2.0f);
       }
+    }
   }
-  __syncthreads();  // sws is staged when R == 0 too; red is free
-  store_colmax(xv, red,
-               partial + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * ND, l);
+  store_colmax(xv, reinterpret_cast<float*>(smem + GLUE_OFF_RED),
+               partial + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * ND);
 }
 
 // out[g][c] = max over the tiles of partial[g][tile][c]; grid G, block ND.
@@ -390,8 +535,18 @@ __global__ void __launch_bounds__(ND) fold_kernel(const T* __restrict__ partial,
 
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+template <int MODE>
+cudaError_t launch_pure(dim3 grid, cudaStream_t st, const void* x, const void* wt, int M,
+                        int R, void* partial) {
+  const cudaError_t e = allow_smem(pure_kernel<MODE>, Pure<MODE>::SMEM);
+  if (e != cudaSuccess) return e;
+  pure_kernel<MODE><<<grid, THREADS, Pure<MODE>::SMEM, st>>>(
+      (const unsigned char*)x, (const unsigned char*)wt, M, R, partial);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -407,9 +562,10 @@ const char* k3_error_string(int code) {
 
 // One probe launch: variant 0-5 as listed at the top. x is [M, 256] (variant
 // 4: [2M, 256]) in the variant's operand type (bf16, int8, or f32 for variant
-// 5), wt the [256, 256] weights transposed to [n][k] (bf16 or int8), sw the
-// [256] f32 column scales (variant 5 only). partial [G, M / 128, 256] and out
-// [G, 256] are f32 (variants 0, 1, 5) or int32. M must be a multiple of 128.
+// 5), wt the [256, 256] weights transposed to [n][k] (bf16 or int8; variant
+// 5: k permuted by glue_k_order), sw the [256] f32 column scales (variant 5
+// only). partial [G, M / 128, 256] and out [G, 256] are f32 (variants 0, 1,
+// 5) or int32. M must be a multiple of 128.
 int k3_probe(int variant, const void* x, const void* wt, const void* sw, int M,
              int G, int R, void* partial, void* out, void* stream) {
   if (M < TM || M % TM != 0 || G < 1 || G > 65535 || R < 0)
@@ -418,40 +574,21 @@ int k3_probe(int variant, const void* x, const void* wt, const void* sw, int M,
   const cudaStream_t st = (cudaStream_t)stream;
   cudaError_t e = cudaSuccess;
   switch (variant) {
-    case 0:
-      if ((e = allow_smem(bf16_kernel<true>, SMEM_BF16)) != cudaSuccess) return (int)e;
-      bf16_kernel<true><<<grid, THREADS, SMEM_BF16, st>>>(
-          (const bf16*)x, (const bf16*)wt, R, (float*)partial);
-      break;
-    case 1:
-      if ((e = allow_smem(bf16_kernel<false>, SMEM_BF16)) != cudaSuccess) return (int)e;
-      bf16_kernel<false><<<grid, THREADS, SMEM_BF16, st>>>(
-          (const bf16*)x, (const bf16*)wt, R, (float*)partial);
-      break;
-    case 2:
-      if ((e = allow_smem(int8_kernel<2>, SMEM_INT8)) != cudaSuccess) return (int)e;
-      int8_kernel<2><<<grid, THREADS, SMEM_INT8, st>>>(
-          (const int8_t*)x, (const int8_t*)wt, M, R, (int*)partial);
-      break;
-    case 3:
-      if ((e = allow_smem(int8_kernel<3>, SMEM_INT8)) != cudaSuccess) return (int)e;
-      int8_kernel<3><<<grid, THREADS, SMEM_INT8, st>>>(
-          (const int8_t*)x, (const int8_t*)wt, M, R, (int*)partial);
-      break;
-    case 4:
-      if ((e = allow_smem(int8_kernel<4>, SMEM_SLICE)) != cudaSuccess) return (int)e;
-      int8_kernel<4><<<grid, THREADS, SMEM_SLICE, st>>>(
-          (const int8_t*)x, (const int8_t*)wt, M, R, (int*)partial);
-      break;
+    case 0: e = launch_pure<0>(grid, st, x, wt, M, R, partial); break;
+    case 1: e = launch_pure<1>(grid, st, x, wt, M, R, partial); break;
+    case 2: e = launch_pure<2>(grid, st, x, wt, M, R, partial); break;
+    case 3: e = launch_pure<3>(grid, st, x, wt, M, R, partial); break;
+    case 4: e = launch_pure<4>(grid, st, x, wt, M, R, partial); break;
     case 5:
       if ((e = allow_smem(glue_kernel, SMEM_GLUE)) != cudaSuccess) return (int)e;
       glue_kernel<<<grid, THREADS, SMEM_GLUE, st>>>(
-          (const float*)x, (const int8_t*)wt, (const float*)sw, R, (float*)partial);
+          (const float*)x, (const unsigned char*)wt, (const float*)sw, R, (float*)partial);
+      e = cudaGetLastError();
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  if (e != cudaSuccess) return (int)e;
   if (variant == 2 || variant == 3 || variant == 4)
     fold_kernel<int><<<G, ND, 0, st>>>((const int*)partial, M / TM, (int*)out);
   else

@@ -1,4 +1,4 @@
-"""Time kernels K1 and K2 of one or several checkouts on the same card.
+"""Time kernels K1, K2 and K3 of one or several checkouts on the same card.
 
     python3 egohmr_tpu_torch/tools/time_kernels.py [ROOT ...]
 
@@ -14,7 +14,10 @@ paths give them, and prints one JSON line: the card's name and power limit
 and, per shape, the median over CUDA-event timings of single calls in ms
 (host time of the wrapper included, as a caller sees it) and, under
 `*_device_ms`, the time of the call's kernels alone, read from the profiler
-(null if it records no device time). Needs a GPU.
+(null if it records no device time). Under `k3_us`, per variant of the
+matmul-rate probe, the time per product in us from the probe's own
+`measure` at its defaults (G=32 chains, R1=32, R2=160, 12 repetitions).
+Needs a GPU.
 """
 from __future__ import annotations
 
@@ -74,12 +77,13 @@ def run_one(root: str) -> dict:
     from egohmr_tpu_torch.models import init_random_
     from egohmr_tpu_torch.nn import ResnetPointnet
     from egohmr_tpu_torch.nn import pointnet_fused as k1
+    from egohmr_tpu_torch.tools import probe_int8_mma as k3
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     out = {"root": root, "card": smi, "k1_ms": {}, "k1_device_ms": {}, "k2_ms": {},
-           "k2_device_ms": {}}
+           "k2_device_ms": {}, "k3_us": {}}
     enc = init_random_(ResnetPointnet(512, 256), seed=1).cuda().eval()
     g = torch.Generator().manual_seed(2)
     for name, (B, P) in K1_SHAPES.items():
@@ -92,6 +96,10 @@ def run_one(root: str) -> dict:
         pts, verts = pts.cuda(), verts.cuda()
         out["k2_ms"][name] = time_ms(lambda: k2.nearest_vertex_idx(pts, verts), reps=20)
         out["k2_device_ms"][name] = device_ms(lambda: k2.nearest_vertex_idx(pts, verts))
+    inputs = k3.make_inputs(0, torch.device("cuda"))
+    for name in k3.VARIANTS:
+        res = k3.measure(name, inputs[name], 32, 32, 160, 12)
+        out["k3_us"][name] = res.get("us_per_matmul")
     return out
 
 

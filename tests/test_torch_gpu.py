@@ -185,20 +185,52 @@ def _assert_k3_agrees(name, got, ref):
 @pytest.mark.parametrize("name", ["A_bf16", "A1_bf16_bare", "B_int8", "B1_int8_bare",
                                   "B2_int8_slice", "C_int8_glue"])
 def test_k3_matches_plain_version(cuda, name):
-    """Every variant of the matmul-rate probe at the full M, K, N and
-    G = 3 chains, R = 0, 1, 2, 7, with a 127 planted in the int8 operand so
-    that the wrapping add is exercised; every launch is counted."""
+    """Every variant of the matmul-rate probe at K = N = 256, M = 2048 (the
+    probe's) and M = 128 (one CTA a chain), G = 1 and 3 chains, R = 0, 1, 2,
+    7 and 33 (odd: the perturbed variants end on a perturbed step), with a
+    127 planted in the int8 operand so that the wrapping add is exercised;
+    every launch is counted."""
     from egohmr_tpu_torch.tools import probe_int8_mma as k3
 
     ops = list(k3.make_inputs(seed=3, device=cuda)[name])
     if name.startswith("B"):
         ops[0][5, 7] = 127
-    for r in (0, 1, 2, 7):
-        before = k3.launches
-        got = k3.run(name, r, 3, *ops)
-        torch.cuda.synchronize()
-        assert k3.launches == before + 1
-        _assert_k3_agrees(name, got, k3.plain(name, r, 3, *ops))
+    for m in (2048, 128):
+        if m != k3.M:  # the leading rows (B2: of each half)
+            x = ops[0]
+            ops_m = [torch.cat([x[:m], x[k3.M:k3.M + m]]) if name == "B2_int8_slice"
+                     else x[:m].contiguous(), *ops[1:]]
+        else:
+            ops_m = ops
+        for g in (1, 3):
+            for r in (0, 1, 2, 7, 33):
+                before = k3.launches
+                got = k3.run(name, r, g, *ops_m)
+                torch.cuda.synchronize()
+                assert k3.launches == before + 1
+                _assert_k3_agrees(name, got, k3.plain(name, r, g, *ops_m))
+
+
+@pytest.mark.gpu
+def test_k3_is_built_from_wgmma_alone(cuda):
+    """The SASS of the built `probe_mma` library (the toolkit's `cuobjdump
+    -sass`) holds warpgroup products, HGMMA (bf16) and IGMMA (int8), and no
+    mma.sync product (HMMA, IMMA): the route the source claims is the one
+    built."""
+    import os
+    import re
+    import shutil
+    import subprocess
+
+    from egohmr_tpu_torch import _build
+
+    _build.load("probe_mma")
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_build._target("probe_mma"))],
+                          capture_output=True, text=True, check=True).stdout
+    assert re.search(r"\bHGMMA\.", sass) and re.search(r"\bIGMMA\.", sass)
+    assert not re.search(r"\bHMMA\.", sass) and not re.search(r"\bIMMA\.", sass)
 
 
 @pytest.mark.gpu
@@ -258,3 +290,18 @@ def test_eval_cli_on_the_card_matches_the_cpu(cuda, monkeypatch, guided):
         atol = 5e-3 if k.startswith(("std", "apd")) else 1e-6
         np.testing.assert_allclose(got[k], want[k], rtol=1e-3, atol=atol, equal_nan=True,
                                    err_msg=k)
+
+
+@pytest.mark.gpu
+def test_k3_plain_glue_on_the_card_matches_the_cpu(cuda):
+    """The glue variant's plain version on the card gives the CPU's result
+    bit for bit (the CPU's is held to the JAX body in
+    `tests/test_torch_probe.py`): its row scale max|x| / 127 is a rounded
+    division on both, where a scalar divisor would have PyTorch on CUDA
+    multiply by 1/127 instead and move some scales by an ulp."""
+    from egohmr_tpu_torch.tools import probe_int8_mma as k3
+
+    ops = k3.make_inputs(seed=4)["C_int8_glue"]
+    for r in (1, 7):
+        got = k3.plain("C_int8_glue", r, 1, *(t.to(cuda) for t in ops)).cpu()
+        assert torch.equal(got, k3.plain("C_int8_glue", r, 1, *ops))

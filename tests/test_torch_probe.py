@@ -199,3 +199,43 @@ def test_jax_probe_still_runs_in_interpret_mode(monkeypatch):
     res = mod.main(["--cpu", "--grid", "1", "--r1", "1", "--r2", "2", "--reps", "1"])
     for name in k3.VARIANTS:  # the same six names in both packages
         assert "error" not in res[name] and "us_per_matmul" in res[name], res[name]
+
+
+@pytest.mark.parametrize("k", [32, 64, 256])
+def test_glue_k_permutation_round_trips(k):
+    """`glue_k_order` permutes k within each 32-wide block, and
+    `permute_glue_k` moves every column to its place and back."""
+    order = k3.glue_k_order(k)
+    assert sorted(order.tolist()) == list(range(k))
+    assert torch.equal(order // 32, torch.arange(k) // 32)
+    wt = torch.tensor(np.random.RandomState(k).randint(-127, 128, (16, k)), dtype=torch.int8)
+    wp = k3.permute_glue_k(wt)
+    assert not torch.equal(wp, wt) and torch.equal(wp[:, torch.argsort(order)], wt)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        k3.glue_k_order(k + 16)
+
+
+def test_glue_k_permutation_keeps_the_int8_product(small):
+    """The kernel's product: the activation's columns in `glue_k_order`
+    against the permuted w^T equals the plain product, element for element."""
+    xf, wq, _ = small["C_int8_glue"]
+    xq = torch.round(xf * 30).clamp(-127, 127).to(torch.int8)
+    order = k3.glue_k_order(K)
+    got = k3._int_product(xq[:, order], k3.permute_glue_k(wq.t().contiguous()).t())
+    assert torch.equal(got, k3._int_product(xq, wq))
+
+
+def test_glue_fragments_take_the_accumulator_columns():
+    """The glue kernel's quantise step, index by index: of each 32-wide
+    k-block kk, the thread with t = lane % 4 packs its register 2h (row g)
+    from its activation values xv[16 kk + 8 h + {0, 1, 4, 5}] (byte 0..3),
+    where xv[4 j + r] is column 8 j + 2 t + r % 2 (the accumulator's
+    layout); the int8 A fragment puts byte b of register 2h at k = 16 h +
+    4 t + b. `glue_k_order` must name that column for that k."""
+    order = k3.glue_k_order(256)
+    for kk in range(256 // 32):
+        for t in range(4):
+            for h in range(2):
+                for b, idx in enumerate((0, 1, 4, 5)):
+                    j, r = divmod(16 * kk + 8 * h + idx, 4)
+                    assert int(order[32 * kk + 16 * h + 4 * t + b]) == 8 * j + 2 * t + r % 2
