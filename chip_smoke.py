@@ -38,6 +38,16 @@ Phases (any failure exits non-zero):
                to the f32 plain run of the same images and noise on the card
                (error metrics within 5 mm); show where the bf16 run's larger
                diversity comes from; time `evaluate_batch` and K2 inside it
+  7. train   — stage-2 training at the same width, batch 16: ms per step
+               in f32 (TF32 off) and bf16-mixed, imgs/s, peak memory; one
+               step with the collision loss (K2 once, counted by its wrapper
+               and by the profiler, held to its plain version on that step's
+               own inputs and timed at [16, 4096] x 6890); the bf16 gradient
+               against the f32 one on the same draws, its cosine held to the
+               JAX package's on the same weights, batch and draws; the loss
+               falling over 100 bf16 steps on one batch; the training CLI, 2
+               steps resumed to 4 with the collision loss from step 2 (K1 0,
+               K2 2 launches)
 Before the last line come a JSON object with one entry per kernel and the
 card's name and power limit; the last line is {"ok": true, "device":
 {...}}. Nothing runs without a GPU.
@@ -987,6 +997,265 @@ def phase_eval(cfg) -> dict:
     return counts
 
 
+TRAIN_B = 16  # the training CLI's default batch
+# The bf16-mixed gradient's cosine to the f32 one, read by the JAX package on
+# the CPU at full width on the weights, batch and draws of this script's
+# gradient check (`tests/grad_cosine_full_width.py`: whole model 0.0743,
+# outside the ResNet 0.9775; the port on the CPU 0.0817 and 0.9767). The
+# weights' fingerprint there, which the check requires before it compares.
+JAX_GRAD_COSINE = {"all": 0.0743, "outside the ResNet": 0.9775}
+GRAD_COSINE_MARGIN = {"all": 0.03, "outside the ResNet": 0.01}
+WEIGHTS_FINGERPRINT = 158740.438725781
+
+
+def train_draws(batch_size: int, cond_mask_prob: float, seed: int = 3):
+    """(t, noise, drop) from `seed` for a 50-step schedule, as
+    `tests/grad_cosine_full_width.py` draws them."""
+    rng = np.random.RandomState(seed)
+    t = rng.randint(0, 50, batch_size).astype(np.int64)
+    noise = rng.randn(batch_size, 144).astype(np.float32)
+    drop = rng.rand(batch_size) < cond_mask_prob
+    return t, noise, drop
+
+
+def phase_train(cfg) -> dict:
+    """Stage-2 training at full width (`EgoHMRConfig()`, batch 16, P=20,000,
+    V=6890, synthetic data, the training init from a seed): step times in
+    f32 (TF32 off) and bf16-mixed; one step with the collision loss, whose
+    K2 call is held to its plain version on that step's own inputs and
+    timed; the bf16 gradient against the f32 one on the same draws; the
+    loss falling over 100 bf16 steps on one batch; and the CLI, 2 steps
+    resumed to 4 (the collision loss from step 2), which is the path's main
+    run."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from egohmr_tpu_torch.collision import knn as k2
+    from egohmr_tpu_torch.collision import sdf
+    from egohmr_tpu_torch.data import synthetic_batch
+    from egohmr_tpu_torch.diffusion import make_schedule
+    from egohmr_tpu_torch.models import BodyRepStats, EgoHMR, LossWeights, init_random_
+    from egohmr_tpu_torch.nn import pointnet_fused as k1
+    from egohmr_tpu_torch.smpl import make_synthetic_model
+    from egohmr_tpu_torch.train import (TrainConfig, make_optimizer, make_train_step,
+                                        stage2_loss, train_egohmr, trainable_tensors)
+
+    dev = torch.device("cuda")
+    B = TRAIN_B
+    smpl = make_synthetic_model(num_vertices=V_FULL, device=dev)
+    stats = BodyRepStats(torch.zeros(144, device=dev), torch.ones(144, device=dev))
+    schedule = make_schedule(50, "cosine", "").to(dev)
+    batches = [synthetic_batch(B, num_scene_points=P_FULL, seed=30 + i, device=dev)
+               for i in range(4)]
+    t0 = time.perf_counter()
+    init = init_random_(EgoHMR(cfg), seed=0, training=True).state_dict()
+    log("train", f"ResNet-{cfg.resnet_layers}, GCN {cfg.gcn_hid_dim}x{cfg.gcn_layers}, batch {B}, "
+                 f"P={P_FULL}, V={V_FULL}; training init in {time.perf_counter() - t0:.1f} s")
+
+    def fresh(**kw):
+        model = EgoHMR(cfg)
+        model.load_state_dict(init)
+        model = model.to(dev, memory_format=torch.channels_last)
+        tcfg = TrainConfig(**kw)
+        opt = make_optimizer(model, tcfg)
+        step = make_train_step(cfg, tcfg, LossWeights(), schedule, stats, smpl, smpl, smpl, opt)
+        return model, step
+
+    # ---- step times: CUDA events around each step beside the host clock
+    times = {}
+    for name, mp in (("f32", False), ("bf16-mixed", True)):
+        model, step = fresh(mixed_precision=mp)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        for i in range(3):  # warm-up: cuDNN algorithm selection, allocator growth
+            step(model, batches[i % 4], gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        b1, b2 = k1.launches, k2.launches
+        dev_ms, host_ms, losses = [], [], []
+        for i in range(20):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t = time.perf_counter()
+            start.record()
+            terms = step(model, batches[i % 4], gen)
+            end.record()
+            end.synchronize()
+            host_ms.append((time.perf_counter() - t) * 1e3)
+            dev_ms.append(start.elapsed_time(end))
+            losses.append(terms["loss"])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        if k1.launches != b1 or k2.launches != b2:
+            fail(f"training without the collision loss launched K1 {k1.launches - b1} and K2 "
+                 f"{k2.launches - b2} times (want 0: K1 has no backward, K2 serves the "
+                 "collision loss only)")
+        if not all(torch.isfinite(x) for x in losses):
+            fail(f"{name} training: a non-finite loss")
+        t = {"ms": float(np.median(dev_ms)), "host_ms": float(np.median(host_ms)),
+             "peak_mib": peak}
+        t["imgs_per_s"] = B / t["host_ms"] * 1e3
+        # where a step's time goes: its kernels under the profiler, the rest
+        # is the card waiting on the host
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step(model, batches[0], gen)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        t["kernel_ms"] = sum(e.self_device_time_total for e in events) / 1e3
+        t["kernel_launches"] = sum(e.count for e in events)
+        top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+        t["top_kernels_ms"] = {e.key[:60]: e.self_device_time_total / 1e3 for e in top}
+        times[name] = t
+        log("train", f"{name} step, median of 20 after 3 warm-up: {t['ms']:.2f} ms (CUDA events), "
+                     f"{t['host_ms']:.2f} ms (host clock), {t['imgs_per_s']:.1f} imgs/s, peak "
+                     f"memory {peak:.0f} MiB; K1 and K2 launches 0; one step under the "
+                     f"profiler: {t['kernel_ms']:.2f} ms of kernels in {t['kernel_launches']} "
+                     "launches, the largest: " + ", ".join(
+                         f"{k} {v:.2f}" for k, v in t["top_kernels_ms"].items()))
+        del model, step
+    log("train", f"bf16-mixed over f32: {times['f32']['ms'] / times['bf16-mixed']['ms']:.2f}x "
+                 "per step (CUDA events)")
+
+    # ---- one step with the collision loss: K2 on that step's own inputs
+    model, step = fresh(use_collision_loss=True)
+    seen = []
+    nearest = sdf.nearest_vertex_idx
+
+    def spy(points, verts, **kw):
+        idx = nearest(points, verts, **kw)
+        seen.append((points.clone(), verts.clone(), idx.clone()))
+        return idx
+
+    sdf.nearest_vertex_idx = spy
+    gen = torch.Generator(device=dev).manual_seed(2)
+    step(model, batches[0], gen)  # warm-up
+    seen.clear()
+    before = k2.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        terms = step(model, batches[1], gen)
+        torch.cuda.synchronize()
+    sdf.nearest_vertex_idx = nearest
+    launched = k2.launches - before
+    profiled = sum(e.count for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and "nearest_vertex_kernel" in e.key)
+    coll = float(terms["loss_coap_penetration"])
+    log("train", f"collision step: K2 launches {launched} (wrapper), {profiled} "
+                 f"nearest_vertex_kernel launches (profiler); loss_coap_penetration {coll:.6e}")
+    if launched != 1 or profiled != 1 or len(seen) != 1 or not np.isfinite(coll):
+        fail(f"the collision step: K2 launched {launched} times, profiled {profiled}, "
+             f"loss_coap_penetration {coll}")
+    pts, verts, got = seen[0]
+    differ, err, ok = k2_agrees(pts, verts, got, k2.nearest_vertex_idx_reference(pts, verts))
+    log("train", f"K2 vs plain on the step's own inputs [{pts.shape[0]}, {pts.shape[1]}] x "
+                 f"{verts.shape[1]}: {differ} of {got.numel()} indices differ, max "
+                 f"|d_kernel - d_plain| {err:.3e}")
+    if pts.shape != (B, TrainConfig().max_collision_points, 3) or not ok:
+        fail("K2 disagrees with its plain version on the training step's inputs")
+
+    def library(p, v):
+        v_sq = torch.sum(v * v, dim=-1)[:, None, :]
+        return torch.baddbmm(v_sq, p, v.transpose(1, 2), alpha=-2.0).argmin(-1)
+
+    k2_train = {"ms": time_ms(lambda: k2.nearest_vertex_idx(pts, verts), reps=20),
+                "plain_ms": time_ms(lambda: k2.nearest_vertex_idx_reference(pts, verts), reps=5),
+                "library_ms": time_ms(lambda: library(pts, verts), reps=5),
+                **bound(6.0 * pts.shape[0] * pts.shape[1] * verts.shape[1], PEAK_F32,
+                        pts.numel() * 4 + verts.numel() * 4 + got.numel() * 8)}
+    log("train", f"K2 at the training shape, median of CUDA-event timings: kernel "
+                 f"{k2_train['ms']:.3f} ms, plain {k2_train['plain_ms']:.3f} ms, baddbmm+argmin "
+                 f"{k2_train['library_ms']:.3f} ms, bound {k2_train['bound_ms']:.4f} ms by "
+                 f"{k2_train['bound_by']}")
+    del model, step, seen
+
+    # ---- the bf16 gradient against the f32 one, on the same draws, held to
+    # the JAX package's reading on the same weights, batch and draws
+    fingerprint = float(sum(float((v.double() ** 2).sum()) for v in init.values()
+                            if v.is_floating_point()))
+    if abs(fingerprint / WEIGHTS_FINGERPRINT - 1) > 1e-9:
+        fail(f"the training init's fingerprint {fingerprint!r} is not the one JAX's gradient "
+             f"cosine was read on ({WEIGHTS_FINGERPRINT!r})")
+    draws = dict(zip(("t", "noise", "drop"), (torch.from_numpy(a).to(dev) for a in
+                                              train_draws(B, cfg.cond_mask_prob))))
+    model, _ = fresh()
+    trained = trainable_tensors(model)
+    grads = {}
+    for mp in (False, True):
+        saved = {k: v.clone() for k, v in model.state_dict().items()}
+        for x in trained.values():
+            x.grad = None
+        loss, _ = stage2_loss(model, cfg, LossWeights(), schedule, stats, smpl, smpl, smpl,
+                              batches[0], use_collision=False, mixed_precision=mp, **draws)
+        loss.backward()
+        grads[mp] = {k: x.grad.double() for k, x in trained.items()}
+        model.load_state_dict(saved)
+    for k, g in grads[True].items():
+        if trained[k].grad.dtype != torch.float32 or not torch.isfinite(g).all():
+            fail(f"bf16-mixed gradient of {k}: {trained[k].grad.dtype}, or not finite")
+
+    def cosine(keys):
+        a = torch.cat([grads[False][k].reshape(-1) for k in keys])
+        b = torch.cat([grads[True][k].reshape(-1) for k in keys])
+        return float(a @ b / (a.norm() * b.norm())), float(a.norm())
+
+    parts = {"all": list(trained), "outside the ResNet": [k for k in trained
+                                                          if not k.startswith("backbone.")]}
+    for top in ("backbone", "scene_enc", "diffusion_model", "embed_timestep", "beta_layer"):
+        parts[top] = [k for k in trained if k.startswith(top + ".")]
+    cosines = {name: cosine(keys) for name, keys in parts.items()}
+    log("train", "bf16-mixed vs f32 gradient (TF32 off), cosine and f32 norm: " + ", ".join(
+        f"{n} {c:.4f} ({nrm:.4g})" for n, (c, nrm) in cosines.items()))
+    # A train-mode ResNet-50 at a random init amplifies the bf16 rounding
+    # into its gradient, far the largest: the JAX package reads a
+    # whole-model cosine of 0.0743 here, not its stub-backbone test's 0.99
+    for part, want in JAX_GRAD_COSINE.items():
+        bar = want - GRAD_COSINE_MARGIN[part]
+        log("train", f"{part}: cosine {cosines[part][0]:.4f}, JAX on the CPU {want:.4f}, "
+                     f"bar {bar:.4f}")
+        if not cosines[part][0] >= bar:
+            fail(f"the bf16-mixed gradient ({part}) strays from the f32 one further than "
+                 "in the JAX package")
+    del model, grads, trained
+
+    # ---- the loss falls: 100 bf16-mixed steps at lr 1e-3 on one batch
+    model, step = fresh(lr=1e-3)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    losses = torch.stack([step(model, batches[0], gen)["loss"] for _ in range(100)]).tolist()
+    early, late = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    # at lr 1e-3 the first Adam steps move every weight by about 1e-3 and
+    # the loss can spike before it falls, which inflates the mean of the
+    # first 5: the last 5 are held to the first step's loss too
+    log("train", f"100 bf16-mixed steps at lr 1e-3 on one batch: the first 5 losses "
+                 f"{', '.join(f'{x:.4f}' for x in losses[:5])} (mean {early:.4f}), the "
+                 f"largest {max(losses):.4f}, mean of the last 5 {late:.4f}: {late / early:.4f}x "
+                 f"the first 5, {late / losses[0]:.4f}x the first (bar 0.8x each)")
+    if not (np.isfinite(late) and late < 0.8 * early and late < 0.8 * losses[0]):
+        fail("the loss did not fall below 0.8 of its start")
+    del model, step
+
+    # ---- the CLI: 2 steps, then resumed to 4 with the collision loss from
+    # step 2: the path's main run, counted from 0
+    with tempfile.TemporaryDirectory() as save_dir:
+        args = ["--synthetic", "--batch_size", str(B), "--log_step", "1", "--val_step", "1000",
+                "--save_step", "1000", "--data_parallel", "false", "--start_coap_step", "2",
+                "--save_dir", save_dir]
+        k1.launches = k2.launches = 0  # main path starts: count launches from here
+        t = time.perf_counter()
+        train_egohmr.main(args + ["--num_steps", "2"])
+        train_egohmr.main(args + ["--num_steps", "4"])
+        secs = time.perf_counter() - t
+        counts = {"k1": k1.launches, "k2": k2.launches}  # main path ends
+        with open(f"{save_dir}/metrics.jsonl") as f:
+            steps = [json.loads(line)["step"] for line in f]
+    log("train", f"the CLI, --synthetic, 2 steps then resumed to 4: {secs:.1f} s (model set-up "
+                 f"included), metrics.jsonl steps {steps}, K1 launches {counts['k1']}, "
+                 f"K2 launches {counts['k2']}")
+    if steps != [0, 1, 2, 3] or counts != {"k1": 0, "k2": 2}:
+        fail(f"the training CLI: steps {steps}, launches {counts} (want K1 0, K2 2)")
+    return {**counts, "times": times, "k2_train_shape": k2_train,
+            "grad_cosine": {n: c for n, (c, _) in cosines.items()},
+            "loss_first": losses[0], "loss_first5": early, "loss_last5": late}
+
+
 def main() -> None:
     smi = phase_device()
     from egohmr_tpu_torch.models import EgoHMRConfig
@@ -997,15 +1266,18 @@ def main() -> None:
     unguided = phase_serve(cfg)
     guided = phase_guided(cfg)
     evaluated = phase_eval(cfg)
+    trained = phase_train(cfg)
     # launches: over the main paths, each counted from 0 just before it (K3's
     # main path is the probe's own entry point, counted in its phase)
-    kernels[0].update(launches=unguided + guided["k1"] + evaluated["k1"],
+    kernels[0].update(launches=unguided + guided["k1"] + evaluated["k1"] + trained["k1"],
                       launches_unguided=unguided, launches_guided=guided["k1"],
-                      launches_eval=evaluated["k1"])
-    kernels[1].update(launches=guided["k2"] + evaluated["k2"], launches_unguided=0,
-                      launches_guided=guided["k2"], launches_eval=evaluated["k2"],
+                      launches_eval=evaluated["k1"], launches_train=trained["k1"])
+    kernels[1].update(launches=guided["k2"] + evaluated["k2"] + trained["k2"],
+                      launches_unguided=0, launches_guided=guided["k2"],
+                      launches_eval=evaluated["k2"], launches_train=trained["k2"],
                       eval_shapes={k: evaluated[k] for k in
-                                   ("k2_metric_ms", "k2_cloud_ms", "k2_bound_ms", "eval_ms")})
+                                   ("k2_metric_ms", "k2_cloud_ms", "k2_bound_ms", "eval_ms")},
+                      train_shape=trained["k2_train_shape"])
     for k in kernels:
         if k["launches"] < 1:
             fail(f"{k['name']} was never launched on a main path")

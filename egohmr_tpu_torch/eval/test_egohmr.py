@@ -28,6 +28,7 @@ from ..models import BodyRepStats, EgoHMR, EgoHMRConfig, init_random_
 from ..nn import cast_params_bf16
 from ..smpl import create as smpl_create
 from ..smpl import make_synthetic_model
+from ..utils.device import resolve_device
 from .pipeline import EvalResult, evaluate_batch, sample_bodies
 
 METRIC_NAMES = ("g_mpjpe", "g_mpjpe_vis", "g_mpjpe_invis",
@@ -58,8 +59,9 @@ def parse_args(argv=None, **default_overrides):
     p.add_argument("--dataset_root", type=str, default="/mnt/ssd/egobody_release")
     p.add_argument("--dataset_file", type=str, default="")
     p.add_argument("--checkpoint", type=str, default="",
-                   help="reference torch .pt/.pth/.ckpt, or a .npz param "
-                        "tree written by the JAX package's save_npz")
+                   help="reference torch .pt/.pth/.ckpt, a checkpoint of the "
+                        "port's training CLI, or a .npz param tree written by "
+                        "the JAX package's save_npz")
     p.add_argument("--body_rep_stats", type=str, default="",
                    help="preprocess_stats.npz path")
     p.add_argument("--smpl_model_path", type=str, default="data/smpl")
@@ -137,12 +139,20 @@ def _synthetic_model(cfg: EgoHMRConfig) -> EgoHMR:
 
 def _load_model(checkpoint: str, cfg: EgoHMRConfig) -> EgoHMR:
     """A reference `.pt`/`.pth`/`.ckpt` loads as it is (the port's modules
-    use the reference's keys); a `.npz` param tree of the JAX package goes
-    through `interop.state_dict_from_jax`."""
+    use the reference's keys), and so does the model state of a checkpoint
+    of the port's training CLI; a `.npz` param tree of the JAX package goes
+    through `interop.state_dict_from_jax`. The trained timestep table `pe`,
+    which the reference layout leaves out, comes with them where the file
+    has it (the training checkpoint's `trained_buffers`, the tree's
+    `embed_timestep.pe`)."""
     model = EgoHMR(cfg)
+    buffers = {}
     if checkpoint.endswith((".pt", ".pth", ".ckpt")):
         obj = torch.load(checkpoint, map_location="cpu", weights_only=True)
-        if isinstance(obj, dict) and "state_dict" in obj:
+        if isinstance(obj, dict) and "model" in obj:  # the training CLI's
+            buffers = obj.get("trained_buffers", {})
+            obj = obj["model"]
+        elif isinstance(obj, dict) and "state_dict" in obj:
             obj = obj["state_dict"]
         sd = {k: v for k, v in obj.items() if isinstance(v, torch.Tensor)}
     elif checkpoint.endswith(".npz"):
@@ -150,33 +160,26 @@ def _load_model(checkpoint: str, cfg: EgoHMRConfig) -> EgoHMR:
         from ..utils.checkpoint import load_npz_tree
 
         tree = load_npz_tree(checkpoint)
-        sd = state_dict_from_jax(tree["params"] if "params" in tree else tree)
+        params = tree["params"] if "params" in tree else tree
+        sd = state_dict_from_jax(params)
+        if "pe" in params.get("embed_timestep", {}):
+            buffers = {"embed_timestep.pe": torch.tensor(params["embed_timestep"]["pe"])}
     else:
         raise ValueError(
             f"--checkpoint {checkpoint!r}: the port reads a reference torch "
-            ".pt/.pth/.ckpt or a .npz param tree. An orbax directory needs the "
-            "JAX stack: export it there with egohmr_tpu.utils.checkpoint."
-            "save_npz and pass the .npz")
+            ".pt/.pth/.ckpt, a checkpoint of its training CLI or a .npz param "
+            "tree. An orbax directory needs the JAX stack: export it there with "
+            "egohmr_tpu.utils.checkpoint.save_npz and pass the .npz")
     model.load_state_dict(sd, strict=True)
+    with torch.no_grad():
+        for name, t in buffers.items():
+            model.get_buffer(name).copy_(t)
     return model
-
-
-def _resolve_device(name: str) -> torch.device:
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device is available; pass "
-                           "--device cpu to run on the CPU")
-    return device
 
 
 def main(argv=None, **default_overrides):
     args = parse_args(argv, **default_overrides)
-    device = _resolve_device(args.device)
-    if args.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            "--data_parallel over several devices is not ported yet (ROADMAP "
-            "slice 8): pass --data_parallel false, or show the process one "
-            "device")
+    device = resolve_device(args.device, args.data_parallel)
     if args.collision_backend != "sdf":
         raise NotImplementedError(
             f"--collision_backend {args.collision_backend}: the learned "

@@ -75,14 +75,24 @@ def _graph_conv(out: Flat, prefix: str, p: dict) -> None:
     _bn(out, prefix + ".bn", p["bn"])
 
 
+def _linear_as_conv1x1(out: Flat, prefix: str, p: dict) -> None:
+    out[prefix + ".weight"] = np.ascontiguousarray(_np(p["w"]).T)[:, :, None, None]
+    if "b" in p:
+        out[prefix + ".bias"] = _np(p["b"])
+
+
 def _gcn(out: Flat, prefix: str, p: dict) -> None:
-    if "non_local" in p:
-        raise NotImplementedError("gcn_nonlocal_layer is not ported yet")
     _graph_conv(out, prefix + "gconv_input.0", p["gconv_input"])
     for i, blk in enumerate(p["gconv_layers"]):
         _graph_conv(out, f"{prefix}gconv_layers.{i}.gconv1", blk["gconv1"])
         _graph_conv(out, f"{prefix}gconv_layers.{i}.gconv2", blk["gconv2"])
     _gconv(out, prefix + "gconv_output", p["gconv_output"])
+    if "non_local" in p:  # 1x1 Conv2d modules over [B, C, 1, 24] in the reference
+        nl = p["non_local"]
+        for name in ("g", "theta", "phi"):
+            _linear_as_conv1x1(out, f"{prefix}non_local.{name}", nl[name])
+        _linear_as_conv1x1(out, prefix + "non_local.W.0", nl["w"])
+        _bn(out, prefix + "non_local.W.1", nl["bn"])
 
 
 def export_arrays(params: dict) -> Flat:

@@ -1,26 +1,32 @@
-"""Stage-2 EgoHMR, inference half (port of egohmr_tpu/models/egohmr.py).
+"""Stage-2 EgoHMR (port of egohmr_tpu/models/egohmr.py).
 
   compute_condition — image/scene/camera/translation conditioning and the
-                      betas head, computed once per batch
+                      betas head, computed once per batch; in training with
+                      batch-statistics BatchNorm and the condition dropped
+                      at random
   make_denoise_fn   — the per-step x0 predictor over the ModulatedGCN, with
                       the conditioning half of its input matmul hoisted and
                       the cond/uncond branches fused into one doubled batch
-  model_outputs     — SMPL skinning and full-image reprojection
-
-The module tree (`EgoHMR`) is named like the reference `state_dict`, so
-`interop.state_dict_from_jax` weights load with `strict=True`.
-
+  denoise_x0        — the predictor in one call, as training runs it
   make_guidance_fn  — the collision-score gradient w.r.t. x_t for guided
                       sampling (kernel K2 finds the nearest vertices)
+  model_outputs     — SMPL skinning and full-image reprojection
+  compute_loss      — the nine weighted training terms (the collision term
+                      through K2), and in eval the visible-joint error sums
 
-Training and the losses are not ported yet.
+The module tree (`EgoHMR`) is named like the reference `state_dict`, so
+`interop.state_dict_from_jax` weights load with `strict=True`. No function
+here turns autograd off: the inference callers (`eval.pipeline`,
+`serving`) run under `torch.no_grad()`, and training differentiates
+through `compute_condition`, `denoise_x0`, `model_outputs` and
+`compute_loss`.
 """
 from __future__ import annotations
 
 import functools
 import math
 from dataclasses import dataclass
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,11 +37,12 @@ from ..collision.sdf import (
     collision_loss,
     gather_rows,
     nearest_vertex,
+    signed_distance,
     topk_scene_points,
     topk_scene_points_near_body,
 )
 from ..diffusion.sampler import StatefulGuidanceFn
-from ..geometry import perspective_projection, rot6d_to_rotmat
+from ..geometry import aa_to_rotmat, perspective_projection, rot6d_to_rotmat
 from ..nn import (
     FCHeadBeta,
     InputProcess,
@@ -53,7 +60,8 @@ from ..nn import (
     timestep_embed,
     transl_enc,
 )
-from ..nn.gcn import ModulatedGraphConv
+from ..nn.gcn import ModulatedGraphConv, NonLocalBlock
+from ..nn.pointnet import ResnetBlockFC
 from ..smpl import (
     SMPLModel,
     lbs,
@@ -140,25 +148,28 @@ class EgoHMR(nn.Module):
         if cfg.backbone_type != "resnet":
             raise ValueError(f"backbone_type {cfg.backbone_type!r}: the port "
                              "has the ResNet backbone only")
-        if cfg.gcn_nonlocal_layer:
-            raise NotImplementedError("gcn_nonlocal_layer is not ported yet")
         self.backbone = ResNet(cfg.resnet_layers)
         self.scene_enc = ResnetPointnet(cfg.scene_feat_dim, cfg.pointnet_hidden_dim)
         self.transl_enc = TranslEnc(3, cfg.transl_embed_dim)
         self.embed_timestep = TimestepEmbedder(cfg.timestep_embed_dim)
         self.input_process = InputProcess(6, cfg.input_process_dim)
         self.diffusion_model = ModulatedGCN(cfg.gcn_in_dim, cfg.gcn_hid_dim, 6,
-                                            cfg.gcn_layers)
+                                            cfg.gcn_layers, cfg.gcn_nonlocal_layer)
         self.beta_layer = FCHeadBeta(cfg.context_feats_dim)
 
 
 @torch.no_grad()
-def init_random_(model: nn.Module, seed: int) -> nn.Module:
+def init_random_(model: nn.Module, seed: int, *, training: bool = False) -> nn.Module:
     """Fill `model` (an EgoHMR or any of its parts) with random weights
     drawn from `seed`, with the JAX package's init distributions, except
     that every weight is drawn (JAX zero-initialises the PointNet `fc_1`,
     which would hide half of K1's products) and the BatchNorm statistics
-    are random too."""
+    are random too.
+
+    `training`: the values the JAX package sets rather than draws, as a
+    training run starts: every BatchNorm at weight 1, bias 0, statistics 0
+    and 1 (the non-local block's output BatchNorm at weight 0, so the block
+    starts as the identity), and the PointNet `fc_1` weights at 0."""
     g = torch.Generator().manual_seed(seed)
 
     def uniform_(t, bound):
@@ -170,6 +181,11 @@ def init_random_(model: nn.Module, seed: int) -> nn.Module:
             uniform_(m.weight, bound)
             if m.bias is not None:
                 uniform_(m.bias, bound)
+        elif isinstance(m, nn.Conv2d) and m.bias is not None:
+            # the non-local block's 1x1 convs, per-node linears in JAX
+            bound = 1.0 / math.sqrt(m.in_channels)
+            uniform_(m.weight, bound)
+            uniform_(m.bias, bound)
         elif isinstance(m, nn.Conv2d):
             n = m.kernel_size[0] * m.kernel_size[1] * m.out_channels
             m.weight.copy_(torch.randn(m.weight.shape, generator=g)
@@ -188,6 +204,15 @@ def init_random_(model: nn.Module, seed: int) -> nn.Module:
             m.running_var.copy_(1 + 0.1 * torch.rand(c, generator=g))
         elif isinstance(m, FCHeadBeta):
             m.init_betas.zero_()
+    if training:
+        for m in model.modules():
+            if isinstance(m, nn.modules.batchnorm._BatchNorm):
+                m.reset_parameters()
+        for m in model.modules():
+            if isinstance(m, NonLocalBlock):
+                m.W[1].weight.zero_()
+            elif isinstance(m, ResnetBlockFC):
+                m.fc_1.weight.zero_()
     return model
 
 
@@ -223,14 +248,20 @@ def _cam_feats(cfg: EgoHMRConfig, batch: Dict[str, torch.Tensor]) -> torch.Tenso
     return torch.cat(feats, dim=-1)
 
 
-@torch.no_grad()
 def compute_condition(model: EgoHMR, cfg: EgoHMRConfig,
-                      batch: Dict[str, torch.Tensor]) -> Condition:
-    """Run all conditioners once (eval mode). The scene cloud is moved
-    into the body's frame (minus the input translation), as the reference
-    does."""
+                      batch: Dict[str, torch.Tensor], *, train: bool = False,
+                      drop: Optional[torch.Tensor] = None) -> Condition:
+    """Run all conditioners once. The scene cloud is moved into the body's
+    frame (minus the input translation), as the reference does.
+
+    `train`: every BatchNorm normalises by the batch's statistics and
+    updates its running ones; the scene encoder is always the plain
+    `pointnet_forward` (kernel K1 has no backward); and with
+    `cfg.cond_mask_prob` > 0 an image's condition is replaced by the
+    unconditional one where `drop` [B] bool is True (`train.stage2_loss`
+    draws it)."""
     B = batch["img"].shape[0]
-    img_feats = resnet_forward(model.backbone, batch["img"])
+    img_feats = resnet_forward(model.backbone, batch["img"], train=train)
 
     vis_openpose = batch["orig_keypoints_2d"][:, :, -1] > 0
     vis_openpose[:, 8] = True  # pelvis always visible
@@ -242,7 +273,7 @@ def compute_condition(model: EgoHMR, cfg: EgoHMRConfig,
     scene_pcd = batch["scene_pcd_verts_full"] - input_transl[:, None, :]
     # the encoder runs in the image dtype; Condition keeps the f32 cloud
     scene_in = scene_pcd.to(batch["img"].dtype)
-    if cfg.pointnet_impl == "fused":
+    if cfg.pointnet_impl == "fused" and not train:
         scene_feats = pointnet_forward_fused(model.scene_enc, scene_in)
     else:
         scene_feats = pointnet_forward(model.scene_enc, scene_in)
@@ -262,6 +293,10 @@ def compute_condition(model: EgoHMR, cfg: EgoHMRConfig,
         cond_uncond = torch.cat([torch.zeros_like(img24), shared24], dim=-1)
     else:
         cond_uncond = torch.zeros_like(cond)
+    if train and cfg.cond_mask_prob > 0.0:
+        if drop is None:
+            raise ValueError("training with cond_mask_prob > 0 needs the drop mask `drop`")
+        cond = torch.where(drop[:, None, None], cond_uncond, cond)
 
     # the betas head sees the unmasked image features and runs in f32 (the
     # promoted dtype of its inputs), as in the JAX package
@@ -297,12 +332,10 @@ def make_denoise_fn(model: EgoHMR, cfg: EgoHMRConfig, cond: Condition, *,
     W = gcn.gconv_input[0].gconv.W  # [2, gcn_in_dim, hid]
     Dc, Dx = cfg.context_feats_dim, cfg.input_process_dim
     Wc, Wx, Wt = W[:, :Dc], W[:, Dc:Dc + Dx], W[:, Dc + Dx:]
-    with torch.no_grad():
-        ch = torch.einsum("bjd,wdh->wbjh", cond.cond, Wc)  # [2, B, 24, hid]
-        cuh = torch.einsum("bjd,wdh->wbjh", cond.cond_uncond, Wc) if fuse else None
+    ch = torch.einsum("bjd,wdh->wbjh", cond.cond, Wc)  # [2, B, 24, hid]
+    cuh = torch.einsum("bjd,wdh->wbjh", cond.cond_uncond, Wc) if fuse else None
     vis = cond.vis_mask_smpl[..., None]
 
-    @torch.no_grad()
     def fn(x_t: torch.Tensor, t_orig: torch.Tensor) -> torch.Tensor:
         B = x_t.shape[0]
         t_emb = timestep_embed(model.embed_timestep, t_orig)
@@ -321,6 +354,22 @@ def make_denoise_fn(model: EgoHMR, cfg: EgoHMRConfig, cond: Condition, *,
         return out.reshape(B, 24 * 6)
 
     return fn
+
+
+def denoise_x0(model: EgoHMR, cfg: EgoHMRConfig, cond: Condition,
+               x_t: torch.Tensor, t_orig: torch.Tensor) -> torch.Tensor:
+    """Predicted normalised x0 [B, 144] from (x_t [B, 144], t_orig [B]) as
+    training runs it: one GCN call on the whole input, the condition as
+    drawn (no cond/uncond split), the GCN's BatchNorms on the batch's
+    statistics. Sampling goes through `make_denoise_fn`."""
+    B = x_t.shape[0]
+    t_emb = timestep_embed(model.embed_timestep, t_orig)
+    t_emb24 = t_emb[:, None, :].expand(B, 24, t_emb.shape[-1])
+    x_feat = input_process(model.input_process, x_t.reshape(B, 24, 6))
+    feats = torch.cat([cond.cond, x_feat, t_emb24], dim=-1)
+    out = modulated_gcn_forward(model.diffusion_model, _adjacency(x_t.device),
+                                feats, train=True)
+    return out.reshape(B, 24 * 6)
 
 
 # --------------------------------------------------------------- guidance
@@ -444,7 +493,6 @@ def make_guidance_fn(
     return StatefulGuidanceFn(init_state, sfn, selection_refresh_every)
 
 
-@torch.no_grad()
 def model_outputs(cfg: EgoHMRConfig, smpl: SMPLModel, cond: Condition,
                   pred_x_start: torch.Tensor,
                   stats: BodyRepStats) -> Dict[str, torch.Tensor]:
@@ -471,3 +519,146 @@ def model_outputs(cfg: EgoHMRConfig, smpl: SMPLModel, cond: Condition,
         "pred_vertices": out.vertices,
         "pred_joints_smpl": out.joints_smpl,
     }
+
+
+# ------------------------------------------------------------------ losses
+@dataclass(frozen=True)
+class LossWeights:
+    """Stage-2 loss weights (the reference's training defaults)."""
+
+    v2v: float = 0.5
+    keypoints_3d: float = 0.05
+    keypoints_3d_full: float = 0.02
+    keypoints_2d_full: float = 0.01
+    betas: float = 0.0005
+    body_pose: float = 0.001
+    global_orient: float = 0.001
+    pose_6d_ortho: float = 0.1
+    coap_penetration: float = 0.0002
+    start_coap_epoch: int = 3
+
+
+@functools.lru_cache(maxsize=None)
+def _loss_constants(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(SMPL -> OpenPose joint index [25], 2D keypoint weights [25] with the
+    ignored joints at 0)."""
+    ign = np.ones(25, np.float32)
+    ign[list(C.KEYPOINT_2D_IGNORE_JOINTS)] = 0.0
+    return (torch.tensor(C.SMPL_TO_OPENPOSE, dtype=torch.int64, device=device),
+            torch.tensor(ign, device=device))
+
+
+def compute_loss(
+    cfg: EgoHMRConfig,
+    weights: LossWeights,
+    smpl_neutral: SMPLModel,
+    smpl_male: SMPLModel,
+    smpl_female: SMPLModel,
+    batch: Dict[str, torch.Tensor],
+    cond: Condition,
+    outputs: Dict[str, torch.Tensor],
+    *,
+    train: bool,
+    use_collision: bool = False,
+    max_collision_points: Optional[int] = 4096,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The weighted stage-2 loss and its terms.
+
+    `use_collision` turns the penetration term on (the CLI's
+    `--start_coap_step`). It scores the `max_collision_points` scene points
+    nearest the posed body's bbox (exact while the bbox's points fit), each
+    by its signed distance to the body: the nearest vertex from kernel K2 on
+    the card, the sign from that vertex's normal. Without `train`, the
+    per-sample sums of the visible-joint error (the model-selection metric)
+    come with the terms."""
+    B = outputs["pred_keypoints_3d"].shape[0]
+    s2o, ign = _loss_constants(outputs["pred_keypoints_3d"].device)
+
+    pred_kp3d = outputs["pred_keypoints_3d"][:, :24]
+    pred_kp3d_full = outputs["pred_keypoints_3d_full"][:, :24]
+    pred_kp2d_full = outputs["pred_keypoints_2d_full"][:, s2o]  # [B, 25, 2]
+    gt_kp2d_full = batch["orig_keypoints_2d"]  # [B, 25, 3]
+    gt_kp3d = batch["keypoints_3d"][:, :24]
+    gt_kp3d_full = batch["keypoints_3d_full"][:, :24]
+
+    # 2D full-image keypoints: confidence-weighted L1, joints 1, 9, 12 ignored
+    conf = gt_kp2d_full[:, :, 2:] * ign[None, :, None]
+    loss_kp2d_full = torch.mean(torch.sum(
+        conf * torch.abs(pred_kp2d_full - gt_kp2d_full[:, :, :2]), dim=(1, 2)))
+
+    def pa(x):  # pelvis-aligned
+        return x - x[:, :1]
+
+    loss_kp3d = torch.mean(torch.sum(torch.abs(pa(pred_kp3d) - pa(gt_kp3d)), dim=(1, 2)))
+    loss_kp3d_full = torch.mean(torch.sum(torch.abs(pred_kp3d_full - gt_kp3d_full), dim=(1, 2)))
+
+    # the gendered ground-truth body for v2v
+    gtp = batch["smpl_params"]
+    gt_m = lbs(smpl_male, gtp["betas"], gtp["global_orient"], gtp["body_pose"],
+               transl=gtp.get("transl"), pose2rot=True)
+    gt_f = lbs(smpl_female, gtp["betas"], gtp["global_orient"], gtp["body_pose"],
+               transl=gtp.get("transl"), pose2rot=True)
+    is_f = (batch["gender"] == 1)[:, None, None]
+    gt_vertices = torch.where(is_f, gt_f.vertices, gt_m.vertices)
+    gt_joints = torch.where(is_f, gt_f.joints, gt_m.joints)
+    pred_vertices = outputs["pred_vertices"]
+    loss_v2v = torch.mean(torch.abs((pred_vertices - pred_kp3d[:, :1])
+                                    - (gt_vertices - gt_joints[:, :1])))
+
+    # SMPL parameters: squared error of the rotation matrices and betas
+    gt_go_rot = aa_to_rotmat(gtp["global_orient"].reshape(-1, 3)).reshape(B, 1, 3, 3)
+    gt_bp_rot = aa_to_rotmat(gtp["body_pose"].reshape(-1, 3)).reshape(B, 23, 3, 3)
+    pred_rot = outputs["pred_pose_rotmat"]
+    loss_global_orient = torch.sum(torch.square(pred_rot[:, :1] - gt_go_rot)) / B
+    loss_body_pose = torch.sum(torch.square(pred_rot[:, 1:] - gt_bp_rot)) / B
+    loss_betas = torch.sum(torch.square(outputs["pred_betas"] - gtp["betas"])) / B
+
+    # orthonormality of the two rot6d columns ('diffusion' layout)
+    p6 = outputs["pred_pose_6d"].reshape(-1, 3, 2)
+    gram = torch.einsum("bij,bik->bjk", p6, p6)
+    loss_ortho = torch.mean(torch.square(gram - torch.eye(2, device=gram.device)))
+
+    if use_collision:
+        scene = topk_scene_points_near_body(cond.scene_pcd, pred_vertices,
+                                            max_collision_points)
+        normals = vertex_normals(pred_vertices, smpl_neutral.faces)
+        mask = bbox_mask(scene, pred_vertices.detach())
+        sdf = signed_distance(scene, pred_vertices, normals)
+        loss_coll = torch.mean(collision_loss(sdf, mask.to(sdf.dtype)))
+    else:
+        loss_coll = pred_vertices.new_zeros(())
+
+    total = (weights.v2v * loss_v2v
+             + weights.keypoints_3d * loss_kp3d
+             + weights.keypoints_3d_full * loss_kp3d_full
+             + weights.keypoints_2d_full * loss_kp2d_full
+             + weights.betas * loss_betas
+             + weights.body_pose * loss_body_pose
+             + weights.global_orient * loss_global_orient
+             + weights.pose_6d_ortho * loss_ortho
+             + weights.coap_penetration * loss_coll)
+    losses = {
+        "loss": total,
+        "loss_v2v": loss_v2v,
+        "loss_keypoints_3d": loss_kp3d,
+        "loss_keypoints_3d_full": loss_kp3d_full,
+        "loss_keypoints_2d_full": loss_kp2d_full,
+        "loss_betas": loss_betas,
+        "loss_body_pose": loss_body_pose,
+        "loss_global_orient": loss_global_orient,
+        "loss_pose_6d_ortho": loss_ortho,
+        "loss_coap_penetration": loss_coll,
+    }
+    if not train:
+        # the visible-3D-joint error, the reference's model-selection metric
+        gt_kp2d = perspective_projection(gt_joints, torch.zeros_like(gt_joints[:, 0]),
+                                         cond.focal_length, cond.camera_center)[:, :24]
+        u, v = gt_kp2d[..., 0], gt_kp2d[..., 1]
+        vis = (u >= 0) & (u < cfg.full_img_w) & (v >= 0) & (v < cfg.full_img_h)
+        err = torch.linalg.norm(pa(pred_kp3d) - pa(gt_kp3d), dim=-1) * vis
+        # per-sample sums, so callers can leave padded rows out
+        losses["loss_keypoints_3d_vis_per_sample"] = err.sum(dim=1)
+        losses["joint_vis_num_per_sample"] = vis.sum(dim=1)
+        losses["loss_keypoints_3d_vis_batch_sum"] = err.sum()
+        losses["joint_vis_num_batch"] = vis.sum()
+    return total, losses

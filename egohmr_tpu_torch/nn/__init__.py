@@ -1,6 +1,6 @@
 """Modules and forward functions of the stage-2 model. The K1 kernel
 wrapper (`pointnet_fused`) builds its CUDA library only when first called."""
-from .core import batchnorm_eval, cast_params_bf16, linear, mm, silu
+from .core import batchnorm, batchnorm_eval, bf16_tensors, cast_params_bf16, linear, mm, silu
 from .embedders import (
     FCHeadBeta,
     InputProcess,
@@ -11,7 +11,7 @@ from .embedders import (
     timestep_embed,
     transl_enc,
 )
-from .gcn import ModulatedGCN, modulated_gcn_forward
+from .gcn import ModulatedGCN, NonLocalBlock, modulated_gcn_forward, nonlocal_block
 from .pointnet import ResnetPointnet, pointnet_forward
 from .pointnet_fused import (
     pointnet_forward_fused,

@@ -8,12 +8,18 @@ follow JAX's dtype rules, which differ from PyTorch's in two places:
   refuses it. `mm`/`linear` cast both operands to the promoted dtype, so a
   f32 input meeting bf16-cast weights computes in f32 from the
   bf16-ROUNDED weights, exactly as JAX does.
-* Eval BatchNorm on low-precision activations folds the f32 statistics into
-  one per-channel scale/shift cast to the activation dtype.
+* BatchNorm on low-precision activations folds the f32 statistics (running
+  ones in eval, batch ones in training) into one per-channel scale/shift
+  cast to the activation dtype.
+
+Mixed-precision training casts every parameter and buffer outside the
+BatchNorms to bf16 inside the differentiated function (`bf16_tensors`), so
+the gradients land in f32 on the f32 master weights.
 """
 from __future__ import annotations
 
 import copy
+from typing import Dict
 
 import torch
 from torch import nn
@@ -52,6 +58,37 @@ def batchnorm_eval(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
             + bn.bias.view(shape))
 
 
+def batchnorm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
+              channel_dim: int, *, train: bool) -> torch.Tensor:
+    """BatchNorm with channels on `channel_dim`, in JAX's arithmetic.
+
+    Training: the batch statistics are f32 whatever the activation dtype,
+    the variance as mean(x^2) - mean(x)^2 over every other axis, and
+    gradients flow through them; the running statistics move by momentum
+    `bn.momentum` towards the batch mean and the variance unbiased by
+    n / (n - 1), written in place outside autograd. Eval: the running
+    statistics (`batchnorm_eval`)."""
+    if not train:
+        return batchnorm_eval(bn, x, channel_dim)
+    channel_dim %= x.ndim
+    reduce = tuple(d for d in range(x.ndim) if d != channel_dim)
+    xs = x.float()
+    mean = xs.mean(dim=reduce)
+    var = xs.square().mean(dim=reduce) - mean.square()
+    n = x.numel() // x.shape[channel_dim]
+    m = bn.momentum
+    with torch.no_grad():
+        bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean)
+        bn.running_var.copy_((1 - m) * bn.running_var + m * (var * (n / max(n - 1, 1))))
+    shape = [1] * x.ndim
+    shape[channel_dim] = -1
+    inv = torch.rsqrt(var + bn.eps) * bn.weight
+    if x.dtype != inv.dtype:
+        shift = bn.bias - mean * inv
+        return x * inv.to(x.dtype).view(shape) + shift.to(x.dtype).view(shape)
+    return (x - mean.view(shape)) * inv.view(shape) + bn.bias.view(shape)
+
+
 def _is_batchnorm(m: nn.Module) -> bool:
     names = {n for n, _ in m.named_parameters(recurse=False)}
     names |= {n for n, _ in m.named_buffers(recurse=False)}
@@ -77,3 +114,20 @@ def cast_params_bf16(model: nn.Module) -> nn.Module:
             if b.dtype == torch.float32:
                 m._buffers[name] = b.to(torch.bfloat16)
     return model
+
+
+def bf16_tensors(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """{name: bf16 cast} of every float32 parameter and buffer of `model`
+    outside the BatchNorms, the set `cast_params_bf16` casts, for
+    `torch.func.functional_call`. The casts are differentiable: called
+    inside the differentiated function, they send the gradients back to the
+    f32 tensors in f32."""
+    out = {}
+    for prefix, m in model.named_modules():
+        if _is_batchnorm(m):
+            continue
+        prefix = prefix + "." if prefix else ""
+        for name, t in (*m.named_parameters(recurse=False), *m.named_buffers(recurse=False)):
+            if t.dtype == torch.float32:
+                out[prefix + name] = t.to(torch.bfloat16)
+    return out

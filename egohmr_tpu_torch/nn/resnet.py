@@ -12,7 +12,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .core import batchnorm_eval
+from .core import batchnorm
 
 RESNET_LAYERS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3),
                  101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
@@ -68,37 +68,38 @@ class ResNet(nn.Module):
             setattr(self, f"layer{li}", nn.Sequential(*blocks))
 
 
-def _bn(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
-    return batchnorm_eval(bn, x, channel_dim=1)
+def _block(blk: nn.Module, x: torch.Tensor, stride: int, train: bool) -> torch.Tensor:
+    def bn(mod, y):  # statistics over (N, H, W) in training
+        return batchnorm(mod, y, channel_dim=1, train=train)
 
-
-def _block(blk: nn.Module, x: torch.Tensor, stride: int) -> torch.Tensor:
     if isinstance(blk, Bottleneck):
-        out = torch.relu(_bn(blk.bn1, F.conv2d(x, blk.conv1.weight)))
+        out = torch.relu(bn(blk.bn1, F.conv2d(x, blk.conv1.weight)))
         # the stride sits on the 3x3 conv, as in torchvision's Bottleneck
-        out = torch.relu(_bn(blk.bn2, F.conv2d(out, blk.conv2.weight, stride=stride,
-                                         padding=1)))
-        out = _bn(blk.bn3, F.conv2d(out, blk.conv3.weight))
+        out = torch.relu(bn(blk.bn2, F.conv2d(out, blk.conv2.weight, stride=stride,
+                                        padding=1)))
+        out = bn(blk.bn3, F.conv2d(out, blk.conv3.weight))
     else:
-        out = torch.relu(_bn(blk.bn1, F.conv2d(x, blk.conv1.weight, stride=stride,
-                                         padding=1)))
-        out = _bn(blk.bn2, F.conv2d(out, blk.conv2.weight, padding=1))
+        out = torch.relu(bn(blk.bn1, F.conv2d(x, blk.conv1.weight, stride=stride,
+                                        padding=1)))
+        out = bn(blk.bn2, F.conv2d(out, blk.conv2.weight, padding=1))
     if blk.downsample is not None:
-        res = _bn(blk.downsample[1],
-                  F.conv2d(x, blk.downsample[0].weight, stride=stride))
+        res = bn(blk.downsample[1], F.conv2d(x, blk.downsample[0].weight, stride=stride))
     else:
         res = x
     return torch.relu(out + res)
 
 
-def resnet_forward(model: ResNet, x_nhwc: torch.Tensor) -> torch.Tensor:
-    """x [B, H, W, 3] NHWC -> mean-pooled stage-4 features [B, C] (eval)."""
+def resnet_forward(model: ResNet, x_nhwc: torch.Tensor, *,
+                   train: bool = False) -> torch.Tensor:
+    """x [B, H, W, 3] NHWC -> mean-pooled stage-4 features [B, C]. `train`:
+    every BatchNorm normalises by the batch's statistics and updates its
+    running ones."""
     x = x_nhwc.permute(0, 3, 1, 2)  # NCHW view, channels_last in memory
-    out = torch.relu(_bn(model.bn1, F.conv2d(x, model.conv1.weight, stride=2,
-                                       padding=3)))
+    out = F.conv2d(x, model.conv1.weight, stride=2, padding=3)
+    out = torch.relu(batchnorm(model.bn1, out, channel_dim=1, train=train))
     out = F.max_pool2d(out, 3, 2, 1)  # pads with -inf, as the JAX max_pool
     for li in range(1, 5):
         for b, blk in enumerate(getattr(model, f"layer{li}")):
             stride = (2 if li > 1 else 1) if b == 0 else 1
-            out = _block(blk, out, stride)
+            out = _block(blk, out, stride, train)
     return out.mean(dim=(2, 3))

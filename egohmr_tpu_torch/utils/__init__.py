@@ -1,1 +1,1 @@
-"""Checkpoint files."""
+"""Checkpoints, run logging and profiling."""

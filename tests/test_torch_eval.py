@@ -158,21 +158,31 @@ def test_use_stage1_transl_matches_jax():
 def test_cli_loads_reference_and_npz_checkpoints(tmp_path):
     """A reference-layout `.pt` loads as it is; a param tree that went
     through the JAX package's `save_npz` loads through `load_npz_tree` and
-    `state_dict_from_jax` to the same weights; an orbax directory is
-    refused with the way out."""
+    `state_dict_from_jax` to the same weights, its trained timestep table
+    `pe` too, and so does a checkpoint of the port's training CLI; an orbax
+    directory is refused with the way out."""
     cfg = EgoHMRConfig(**TINY)
     _, _, params, model = tiny_pair(seed=6)
     want = model.state_dict()
+    formula = model.embed_timestep.pe.clone()
+    trained = formula.clone()
+    trained[7] += 0.01  # a drawn row moved
+    params["embed_timestep"]["pe"] = trained.numpy()
     pt = str(tmp_path / "run" / "model.pt")
     os.makedirs(os.path.dirname(pt))
     torch.save({"state_dict": want, "epoch": 3}, pt)
+    ckpt = str(tmp_path / "run" / "step_3.pt")
+    torch.save({"model": want, "trained_buffers": {"embed_timestep.pe": trained},
+                "optimizer": {"state": {}, "param_groups": []}, "step": 3}, ckpt)
     j_save_npz(str(tmp_path / "params.npz"), to_jax(params))
     j_save_npz(str(tmp_path / "state.npz"), {"params": to_jax(params), "step": jnp.asarray(4)})
-    for path in (pt, str(tmp_path / "params.npz"), str(tmp_path / "state.npz")):
-        got = tcli._load_model(path, cfg).state_dict()
+    for path in (pt, ckpt, str(tmp_path / "params.npz"), str(tmp_path / "state.npz")):
+        loaded = tcli._load_model(path, cfg)
+        got = loaded.state_dict()
         assert set(got) == set(want), path
         for k in want:
             assert torch.equal(got[k], want[k]), (path, k)
+        assert torch.equal(loaded.embed_timestep.pe, formula if path == pt else trained), path
     os.makedirs(tmp_path / "step_100")
     with pytest.raises(ValueError, match="save_npz"):
         tcli._load_model(str(tmp_path / "step_100"), cfg)
@@ -205,8 +215,9 @@ CLI_ARGS = ["--synthetic", "--batch_size", "2", "--num_batches", "1", "--num_sam
             "--timestep_respacing_eval", "ddim5"]
 
 
-@pytest.mark.parametrize("guided", [False, True], ids=["unguided", "guided"])
-def test_cli_as_a_whole_matches_jax(tmp_path, monkeypatch, capsys, guided):
+@pytest.mark.parametrize("guided,nonlocal_layer", [(False, False), (True, False), (False, True)],
+                         ids=["unguided", "guided", "nonlocal"])
+def test_cli_as_a_whole_matches_jax(tmp_path, monkeypatch, capsys, guided, nonlocal_layer):
     """The slice as a whole, at full width on the CPU (ResNet-50, 20,000
     scene points, 6890 vertices, 2 images x 2 samples, DDIM-5 with eta = 0):
     both CLIs on the same weights (the tree the JAX CLI draws with
@@ -215,12 +226,23 @@ def test_cli_as_a_whole_matches_jax(tmp_path, monkeypatch, capsys, guided):
     key chain draws, handed to the port as `noise`). Summary keys equal,
     values within rtol 1e-3; the `results.pkl` each writes holds the same
     keys and shapes and the same bodies, and the viewer tool reads the
-    port's."""
-    args = CLI_ARGS + ["--with_coap_grad", "true" if guided else "false"]
+    port's. `nonlocal`: `--gcn_nonlocal_layer true`, with the block's output
+    BatchNorm drawn at random in both trees (its init, scale 0, makes the
+    block the identity)."""
+    args = CLI_ARGS + ["--with_coap_grad", "true" if guided else "false",
+                       "--gcn_nonlocal_layer", "true" if nonlocal_layer else "false"]
     # the JAX CLI, with --synthetic: init_egohmr(PRNGKey(0), cfg), and per
     # batch key, sub = split(key); sample_loop draws x_T from split(sub)[1]
-    cfg = JaxConfig(pointnet_impl="xla")
+    cfg = JaxConfig(pointnet_impl="xla", gcn_nonlocal_layer=nonlocal_layer)
     params = init_egohmr(jax.random.PRNGKey(0), cfg)
+    if nonlocal_layer:
+        import egohmr_tpu.models as jmodels
+
+        rng = np.random.RandomState(9)
+        bn = params["diffusion_model"]["non_local"]["bn"]
+        bn.update({k: jnp.asarray(v + 0.3 * rng.randn(*v.shape).astype(np.float32))
+                   for k, v in ((k, np.asarray(bn[k])) for k in ("scale", "bias"))})
+        monkeypatch.setattr(jmodels, "init_egohmr", lambda key, c: params)
     sub = jax.random.split(jax.random.PRNGKey(0))[1]
     x_T = np.asarray(jax.random.normal(jax.random.split(sub)[1], (4, 144)))
 

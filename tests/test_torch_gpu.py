@@ -100,9 +100,11 @@ def _assert_k2_agrees(pts, verts):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,P,V", [(64, 1024, 6890), (16, 1024, 6890), (16, 20000, 6890),
-                                   (3, 777, 431)])
+                                   (16, 4096, 6890), (3, 777, 431)])
 def test_k2_matches_plain_version(cuda, B, P, V):
-    """The two guided shapes, the metric shape and a small ragged one."""
+    """The two guided shapes, the metric shape, the training shape (the
+    collision loss's 4096 scene points of a batch of 16) and a small ragged
+    one."""
     _assert_k2_agrees(*_points_near_body(B, P, V, seed=P, device=cuda))
 
 
@@ -290,6 +292,89 @@ def test_eval_cli_on_the_card_matches_the_cpu(cuda, monkeypatch, guided):
         atol = 5e-3 if k.startswith(("std", "apd")) else 1e-6
         np.testing.assert_allclose(got[k], want[k], rtol=1e-3, atol=atol, equal_nan=True,
                                    err_msg=k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("collision", [False, True], ids=["plain", "collision"])
+def test_train_step_on_the_card_matches_the_cpu(cuda, collision):
+    """One f32 `stage2_loss` and its backward at a tiny width (ResNet-18,
+    GCN 1 x 16, 64 scene points, a 64-vertex synthetic body), TF32 off, on
+    the card and on the CPU from the same weights, batch and draws (t, noise
+    and the condition-drop mask handed in): the loss and its terms at rtol
+    1e-4, the BatchNorm statistics at rtol 1e-5 (atol 1e-5 x the tensor's
+    largest). Gradients: outside the ResNet each at rtol 1e-3 with atol
+    1e-3 x the tensor's largest (the biases whose gradient is zero up to
+    rounding: 1e-5 x the largest gradient); the ResNet's, whose early
+    layers sum many products behind train-mode BatchNorms and so carry the
+    convolution algorithms' f32 rounding (cuDNN's against the CPU's), each
+    within 1e-2 of its norm, and the whole gradient's cosine over 0.99999.
+    With the collision loss, K2 runs on the card and its plain version on
+    the CPU."""
+    from egohmr_tpu_torch.data import synthetic_batch, to_torch
+    from egohmr_tpu_torch.diffusion import make_schedule
+    from egohmr_tpu_torch.models import BodyRepStats, EgoHMR, EgoHMRConfig, LossWeights
+    from egohmr_tpu_torch.smpl import make_synthetic_model
+    from egohmr_tpu_torch.train import stage2_loss, trainable_tensors
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = EgoHMRConfig(resnet_layers=18, img_feat_dim=512, scene_feat_dim=32,
+                       pointnet_hidden_dim=32, transl_embed_dim=16, timestep_embed_dim=32,
+                       input_process_dim=32, gcn_hid_dim=16, gcn_layers=1, cond_mask_prob=0.5)
+    B = 4
+    init = init_random_(EgoHMR(cfg), seed=0, training=True).state_dict()
+    batch = synthetic_batch(B, num_scene_points=64, img_size=64, seed=3)
+    g = torch.Generator().manual_seed(5)
+    draws = {"t": torch.randint(0, 50, (B,), generator=g), "noise": torch.randn(B, 144, generator=g),
+             "drop": torch.tensor([True, False, True, False])}
+    results = {}
+    for device in (cuda, torch.device("cpu")):
+        model = EgoHMR(cfg)
+        model.load_state_dict(init)
+        model = model.to(device)
+        trained = trainable_tensors(model)
+        smpl = [make_synthetic_model(seed=s, num_vertices=64, device=device) for s in range(3)]
+        before = k2.launches
+        loss, terms = stage2_loss(
+            model, cfg, LossWeights(), make_schedule(50, "cosine", "").to(device),
+            BodyRepStats(torch.zeros(144, device=device), torch.ones(144, device=device)),
+            *smpl, to_torch(batch, device), use_collision=collision, max_collision_points=32,
+            **{k: v.to(device) for k, v in draws.items()})
+        loss.backward()
+        assert k2.launches == before + (collision and device.type == "cuda")
+        results[device.type] = (
+            {k: v.detach().cpu() for k, v in terms.items()},
+            {k: t.grad.cpu() for k, t in trained.items()},
+            {k: v.cpu() for k, v in model.state_dict().items() if "running" in k})
+    (tg, gg, sg), (tc, gc, sc) = results["cuda"], results["cpu"]
+    if collision:
+        assert tc["loss_coap_penetration"] > 0
+    top = max(v.abs().max().item() for v in gc.values())
+    zero_grad = (".gconv.bias", "non_local.W.0.bias", "non_local.g.bias", "non_local.phi.bias")
+    bars = {**{("term", k): (1e-4, 1e-7) for k in tc},
+            **{("grad", k): (1e-3, 1e-5 * top if k.endswith(zero_grad)
+                             else 1e-3 * gc[k].abs().max().item())
+               for k in gc if not k.startswith("backbone.")},
+            **{("stat", k): (1e-5, 1e-5 * sc[k].abs().max().item()) for k in sc}}
+    got = {**{("term", k): tg[k] for k in tg}, **{("grad", k): gg[k] for k in gg},
+           **{("stat", k): sg[k] for k in sg}}
+    want = {**{("term", k): tc[k] for k in tc}, **{("grad", k): gc[k] for k in gc},
+            **{("stat", k): sc[k] for k in sc}}
+    missed = []  # every miss at once: the card's run is the expensive part
+    for key, (rtol, atol) in bars.items():
+        excess = ((got[key] - want[key]).abs() - rtol * want[key].abs() - atol).max().item()
+        if excess > 0:
+            missed.append((key, excess, (got[key] - want[key]).abs().max().item()))
+    for k in gc:
+        if k.startswith("backbone."):
+            rel = ((gg[k] - gc[k]).norm() / gc[k].norm().clamp_min(1e-30)).item()
+            if rel > 1e-2:
+                missed.append((("grad norm", k), rel))
+    a = torch.cat([gg[k].reshape(-1).double() for k in gc])
+    b = torch.cat([gc[k].reshape(-1).double() for k in gc])
+    cos = (a @ b / (a.norm() * b.norm())).item()
+    if not cos > 0.99999:
+        missed.append((("gradient cosine",), cos))
+    assert not missed, "\n".join(map(str, missed))
 
 
 @pytest.mark.gpu

@@ -244,7 +244,8 @@ def test_port_never_imports_jax():
         os.path.join(d, f) for d, _, files in os.walk(pkg) for f in files if f.endswith(".py")]
     walked = {os.path.relpath(f, pkg) for f in sources[1:]}
     assert {"tools/probe_int8_mma.py", "viz/renderer.py", "utils/checkpoint.py", "native.py",
-            "eval/test_egohmr.py", "data/egobody.py"} <= walked
+            "eval/test_egohmr.py", "data/egobody.py", "train/loop.py", "train/train_egohmr.py",
+            "data/prefetch.py", "utils/logging.py", "utils/profiling.py"} <= walked
     for f in sources:
         for node in ast.walk(ast.parse(open(f).read())):
             names = ([a.name for a in node.names] if isinstance(node, ast.Import)
@@ -267,6 +268,7 @@ def test_port_never_imports_jax():
         "out = p(synthetic_batch(1, num_scene_points=64, img_size=32))\n"
         "assert out['pred_pose_6d'].shape == (1, 1, 144)\n"
         "import egohmr_tpu_torch.eval.test_egohmr, egohmr_tpu_torch.tools.probe_int8_mma\n"
+        "import egohmr_tpu_torch.train.train_egohmr, egohmr_tpu_torch.utils.profiling\n"
         "import egohmr_tpu_torch.viz, egohmr_tpu_torch.utils.checkpoint, egohmr_tpu_torch.native\n"
         "assert 'jax' not in sys.modules and 'egohmr_tpu' not in sys.modules\n"
         "print('ok')\n")
