@@ -48,6 +48,18 @@ Phases (any failure exits non-zero):
                falling over 100 bf16 steps on one batch; the training CLI, 2
                steps resumed to 4 with the collision loss from step 2 (K1 0,
                K2 2 launches)
+  8. stage1  — stage 1 (ProHMR-scene) at full width (ResNet-50, the 4-step
+               Glow at hidden 1024, PointNet H=256 on 20,000 points, 6890
+               vertices): the evaluation CLI at its defaults (10 images x 5
+               samples, K1) over 6 batches, K1 counted by its wrapper and the
+               profiler (once per batch) and held to its plain version on the
+               CLI's clouds, the summary within 5 mm and the translations
+               within 2 mm of the CLI's f32 plain run, ms of the first batch
+               (K1's weights prepared) and median ms of the other five, by
+               CUDA events and the host clock; the stage-2 CLI (--two_stage
+               true) conditioned on the translations of its results.pkl;
+               the training CLI, 2 steps resumed to 4 at batch 32 (K1 0
+               launches); the G+D step's ms, imgs/s, peak memory and kernels
 Before the last line come a JSON object with one entry per kernel and the
 card's name and power limit; the last line is {"ok": true, "device":
 {...}}. Nothing runs without a GPU.
@@ -135,6 +147,17 @@ def bound(flops: float, peak: float, nbytes: float) -> dict:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
+def k1_bound(enc, B: int, P: int) -> dict:
+    """K1's bound at [B, P]. Products per point: fc_pos 3->2H, block 0
+    (2H->H, H->H, shortcut 2H->H), blocks 1-3 on the point's own half (three
+    H->H each; the pooled half is one row per cloud); bytes: the bf16
+    points, the bf16 weights, the f32 feature."""
+    H = enc.block_0.fc_1.weight.shape[0]
+    macs = 3 * 2 * H + 2 * H * H + H * H + 2 * H * H + 9 * H * H
+    n_weights = sum(p.numel() for p in enc.parameters())
+    return bound(2.0 * macs * B * P, PEAK_BF16, B * P * 3 * 2 + n_weights * 2 + B * H * 4)
+
+
 def phase_kernel_k1(cfg) -> dict:
     from egohmr_tpu_torch.models import init_random_
     from egohmr_tpu_torch.nn import ResnetPointnet, cast_params_bf16, pointnet_forward
@@ -201,15 +224,7 @@ def phase_kernel_k1(cfg) -> dict:
                       + "; no pool kernel: context_kernel, 4 launches, decodes the max")
     else:
         log("kernel", "K1 by kernel: the profiler recorded no device time: not measured")
-    # products per point: fc_pos 3->2H, block 0 (2H->H, H->H, shortcut
-    # 2H->H), blocks 1-3 on the point's own half (three H->H each; the
-    # pooled half is one row per cloud); bytes: the bf16 points, the bf16
-    # weights, the f32 feature
-    H = cfg.pointnet_hidden_dim
-    macs = 3 * 2 * H + 2 * H * H + H * H + 2 * H * H + 9 * H * H
-    n_weights = sum(p.numel() for p in enc.parameters())
-    b = bound(2.0 * macs * B_TIME * P_FULL, PEAK_BF16,
-              B_TIME * P_FULL * 3 * 2 + n_weights * 2 + B_TIME * H * 4)
+    b = k1_bound(enc, B_TIME, P_FULL)
     log("kernel", f"K1 bound {b['bound_ms']:.3f} ms by {b['bound_by']} "
                   f"(bf16 tensor-core peak): K1 runs at {b['bound_ms'] / ms * 100:.1f}% of that rate")
     return {"name": "pointnet_fused", "route": "cuda",
@@ -1256,6 +1271,291 @@ def phase_train(cfg) -> dict:
             "loss_first": losses[0], "loss_first5": early, "loss_last5": late}
 
 
+# stage 1's evaluation CLI at its defaults (batch 10, 5 samples, K1), 6
+# batches: the first prepares K1's weights, the other five are timed apart
+S1_ARGS = ["--synthetic", "--device", "cuda", "--num_batches", "6"]
+S1_BATCHES = 6
+S1_TRAIN_B = 32  # the stage-1 training CLI's default batch
+# the bar on the CLI's translations, K1 against the f32 plain encoder, in mm:
+# four times the 0.5 mm predicted before the first run (`PERF.md`)
+S1_TRANSL_BAR_MM = 2.0
+S1_ERROR_BAR_MM = 5.0  # every error key, as in phase 6
+
+
+def phase_stage1() -> dict:
+    """Stage 1 at full width (`ProHMRConfig()`: ResNet-50, the 4-step Glow at
+    hidden 1024 over a 2566-d context, PointNet H=256 on 20,000 points, 6890
+    vertices), random weights from a seed, synthetic data: (a) the
+    evaluation CLI at its defaults with K1, counted by its wrapper and the
+    profiler, K1 held to its plain version on the clouds the CLI gave it,
+    and the summary and translations held to the CLI's f32 plain run; (b)
+    the stage-2 CLI with `--two_stage true` conditioned on the translations
+    of (a)'s `results.pkl`, handed in with its synthetic batches (the pkl
+    -> `EgoBodyDataset` path is held on the CPU by
+    `tests/test_torch_prohmr_cli.py`); (c) the training CLI, 2 steps resumed to 4 at
+    batch 32, K1 0 launches; (d) the G+D step's time, imgs/s, peak memory
+    and kernels."""
+    import pickle
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from egohmr_tpu_torch.data import synthetic_batch, to_torch
+    from egohmr_tpu_torch.eval import test_egohmr as s2cli
+    from egohmr_tpu_torch.eval import test_prohmr as s1cli
+    from egohmr_tpu_torch.models import Discriminator, ProHMR, ProHMRConfig, ProHMRLossWeights
+    from egohmr_tpu_torch.models import init_discriminator_, prohmr
+    from egohmr_tpu_torch.nn import pointnet_fused as k1
+    from egohmr_tpu_torch.smpl import make_synthetic_model
+    from egohmr_tpu_torch.train import make_optimizers, make_prohmr_train_step, train_prohmr
+
+    dev = torch.device("cuda")
+    cfg = ProHMRConfig()
+    B, S = s1cli.parse_args([]).batch_size, s1cli.parse_args([]).num_samples
+    result = {}
+    tmp = tempfile.TemporaryDirectory()
+
+    # ---- (a) the evaluation CLI: every batch's forward timed, K1's inputs kept
+    forward, fused = s1cli.forward, prohmr.pointnet_forward_fused
+    per_batch, seen = [], []
+
+    def timed_forward(*a, **kw):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        start.record()
+        out = forward(*a, **kw)
+        end.record()
+        end.synchronize()
+        per_batch.append((start.elapsed_time(end), (time.perf_counter() - t) * 1e3))
+        return out
+
+    def spy(enc, pts):
+        seen.append((enc, pts.clone()))
+        return fused(enc, pts)
+
+    s1cli.forward, prohmr.pointnet_forward_fused = timed_forward, spy
+    runs = {}
+    try:
+        s1cli.main(S1_ARGS[:-1] + ["1", "--save_results", "false"])  # warm-up
+        for name, extra in (("fused", []), ("xla", ["--pointnet_impl", "xla"])):
+            per_batch.clear()
+            seen.clear()
+            save = f"{tmp.name}/{name}"
+            k1.launches = 0  # main path starts: count launches from here
+            t = time.perf_counter()
+            summary = s1cli.main(S1_ARGS + extra + ["--save_root", save])
+            secs = time.perf_counter() - t
+            launches = k1.launches  # main path ends
+            with open(f"{save}/results.pkl", "rb") as f:
+                transl = pickle.load(f)["pred_cam_full_list"]
+            runs[name] = {"summary": summary, "transl": transl, "launches": launches,
+                          "secs": secs, "batches": list(per_batch), "seen": list(seen)}
+            # the first batch prepares K1's weights (a new model each run)
+            ev, host = (float(np.median([b[i] for b in per_batch[1:]])) for i in (0, 1))
+            log("stage1", f"eval CLI --pointnet_impl {name}, {B} images x {S} samples x "
+                          f"{S1_BATCHES} batches: {secs:.2f} s for the whole run (model set-up "
+                          f"included); ms per batch's forward, CUDA events "
+                          f"{[round(b[0], 3) for b in per_batch]}, host clock "
+                          f"{[round(b[1], 3) for b in per_batch]} (first {per_batch[0][0]:.3f} "
+                          f"/ {per_batch[0][1]:.3f}, median of the other "
+                          f"{len(per_batch) - 1} {ev:.3f} / {host:.3f}); K1 launches {launches}")
+            runs[name].update(event_ms=ev, host_ms=host, first_event_ms=per_batch[0][0],
+                              first_host_ms=per_batch[0][1])
+        # each batch's forward under the profiler: K1's four stage kernels
+        # per call, and the kernels of the batch
+        profiled = []
+
+        def profiled_forward(*a, **kw):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                out = forward(*a, **kw)
+                torch.cuda.synchronize()
+            events = [e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+            profiled.append((sum(e.self_device_time_total for e in events) / 1e3,
+                             sum(e.count for e in events),
+                             sum(e.count for e in events if "stage_kernel" in e.key)))
+            return out
+
+        s1cli.forward = profiled_forward
+        k1.launches = 0
+        s1cli.main(S1_ARGS + ["--save_root", f"{tmp.name}/profiled"])
+    finally:
+        s1cli.forward, prohmr.pointnet_forward_fused = forward, fused
+    stages = sum(p[2] for p in profiled)
+    got, want = runs["fused"], runs["xla"]
+    prof_ms, prof_launches = profiled[-1][:2]  # the last batch: K1's weights prepared
+    log("stage1", f"K1 under the profiler: {stages} stage_kernel launches, {stages / 4:g} K1 "
+                  f"calls (wrapper: {k1.launches}); each batch's forward: "
+                  f"{[round(p[0], 2) for p in profiled]} ms of kernels in "
+                  f"{[p[1] for p in profiled]} launches")
+    if got["launches"] != S1_BATCHES or want["launches"] != 0 or stages != 4 * S1_BATCHES:
+        fail(f"stage-1 eval: K1 launched {got['launches']} times with fused, "
+             f"{want['launches']} with xla, {stages} stage kernels profiled (want "
+             f"{S1_BATCHES}, 0, {4 * S1_BATCHES})")
+    if len(got["seen"]) != S1_BATCHES or want["seen"]:
+        fail(f"stage-1 eval: K1 was handed {len(got['seen'])} clouds (want {S1_BATCHES})")
+    # K1 against its plain version on the clouds the CLI gave it
+    k1_err = 0.0
+    for enc, pts in got["seen"]:
+        feat = k1.pointnet_fused_feature(enc, pts)
+        ref = k1.pointnet_fused_reference(enc, pts)
+        err, bar = (feat - ref).abs().max().item(), 2.0 ** -7 * ref.abs().max().item()
+        log("stage1", f"K1 vs plain on the CLI's clouds [{pts.shape[0]}, {pts.shape[1]}]: "
+                      f"max_abs_err {err:.3e} (bar {bar:.3e})")
+        if not torch.isfinite(feat).all() or err > bar:
+            fail("K1 disagrees with its plain version on stage 1's clouds")
+        k1_err = max(k1_err, err)
+    enc, pts = got["seen"][0]
+    with torch.no_grad():
+        k1_ms = time_ms(lambda: k1.pointnet_fused_feature(enc, pts), reps=20)
+        k1_plain_ms = time_ms(lambda: k1.pointnet_fused_reference(enc, pts), reps=5)
+    k1b = k1_bound(enc, pts.shape[0], pts.shape[1])
+    log("stage1", f"K1 at B={pts.shape[0]}, P={pts.shape[1]}, median of CUDA-event timings: "
+                  f"{k1_ms:.3f} ms, plain {k1_plain_ms:.3f} ms, bound {k1b['bound_ms']:.3f} "
+                  f"ms by {k1b['bound_by']} ({k1b['bound_ms'] / k1_ms * 100:.1f}%)")
+    # the summary and the translations against the f32 plain run
+    if list(got["summary"]) != ["g_mpjpe", "mpjpe", "pa_mpjpe", "v2v"] or \
+            list(want["summary"]) != list(got["summary"]):
+        fail(f"stage-1 summary keys {list(got['summary'])}, {list(want['summary'])}")
+    for key, v in got["summary"].items():
+        w = want["summary"][key]
+        log("stage1", f"{key}: K1 {v:.4f} mm, f32 plain {w:.4f} mm, |diff| {abs(v - w):.4f} "
+                      f"(bar {S1_ERROR_BAR_MM})")
+        if not (np.isfinite(v) and abs(v - w) <= S1_ERROR_BAR_MM):
+            fail(f"stage-1 {key}: {v} with K1, {w} f32 plain")
+    if got["transl"].shape != (B * S1_BATCHES, 3) or not np.isfinite(got["transl"]).all():
+        fail(f"stage-1 translations: shape {got['transl'].shape} or non-finite")
+    dt = np.abs(got["transl"] - want["transl"]) * 1e3
+    log("stage1", f"pred_cam_full_list, K1 against f32 plain: max |diff| {dt.max():.4f} mm, "
+                  f"mean {dt.mean():.4f} mm (bar {S1_TRANSL_BAR_MM} mm); depths "
+                  f"{got['transl'][:, 2].min():.3f}-{got['transl'][:, 2].max():.3f} m")
+    if not dt.max() <= S1_TRANSL_BAR_MM:
+        fail("stage-1 translations with K1 stray from the f32 plain run")
+    result.update(launches=got["launches"], eval_event_ms=got["event_ms"],
+                  eval_kernel_ms_per_batch=prof_ms,
+                  eval_launches_per_batch=prof_launches,
+                  eval_host_ms=got["host_ms"], eval_plain_event_ms=want["event_ms"],
+                  eval_plain_host_ms=want["host_ms"], eval_first_event_ms=got["first_event_ms"],
+                  eval_first_host_ms=got["first_host_ms"],
+                  eval_plain_first_event_ms=want["first_event_ms"],
+                  transl_max_diff_mm=float(dt.max()),
+                  summary=got["summary"], summary_plain=want["summary"],
+                  k1={"max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms, **k1b,
+                      "shape": list(pts.shape)})
+
+    # ---- (b) the handoff: the stage-2 CLI conditioned on (a)'s translations
+    handoff = got["transl"]
+    batches, sample = s2cli.synthetic_batch, s2cli.sample_bodies
+    read = []
+
+    def stage1_data(batch_size, *, seed, device):
+        i = seed - 100  # the stage-2 CLI's batch i: stage 1's images and translations
+        batch = synthetic_batch(batch_size, seed=200 + i)
+        batch["stage1_transl_full"] = handoff[i * batch_size:(i + 1) * batch_size]
+        return to_torch(batch, device)
+
+    def recording(*a, **kw):
+        outputs, cond = sample(*a, **kw)
+        read.append(cond.input_transl.float().cpu().numpy())
+        return outputs, cond
+
+    s2cli.synthetic_batch, s2cli.sample_bodies = stage1_data, recording
+    try:
+        s2cli.main(["--synthetic", "--device", "cuda", "--batch_size", str(B), "--num_batches",
+                    str(S1_BATCHES), "--num_samples", "1", "--timestep_respacing_eval", "ddim5",
+                    "--with_coap_grad", "false", "--two_stage", "true", "--save_results", "true",
+                    "--save_root", f"{tmp.name}/s2"])
+    finally:
+        s2cli.synthetic_batch, s2cli.sample_bodies = batches, sample
+    with open(f"{tmp.name}/s2/output_egohmr_synthetic/results_seed_0.pkl", "rb") as f:
+        carried = pickle.load(f)["pred_cam_full_list"]
+    used = np.concatenate(read)
+    log("stage1", f"handoff: the stage-2 CLI conditioned {used.shape[0]} images on the "
+                  f"translations of stage 1's results.pkl, handed in with its batches (max "
+                  f"|diff| {np.abs(used - handoff).max():.3e} m), and wrote them back (max "
+                  f"|diff| {np.abs(carried - handoff).max():.3e} m)")
+    if used.shape != handoff.shape or not np.array_equal(used, handoff) or \
+            not np.array_equal(carried, handoff):
+        fail("the stage-2 CLI did not read stage 1's translations")
+
+    # ---- (c) the training CLI: 2 steps, then resumed to 4
+    args = ["--synthetic", "--device", "cuda", "--log_step", "1", "--data_parallel", "false",
+            "--save_dir", f"{tmp.name}/train"]
+    k1.launches = 0  # main path starts: count launches from here
+    t = time.perf_counter()
+    train_prohmr.main(args + ["--num_steps", "2"])
+    train_prohmr.main(args + ["--num_steps", "4"])
+    secs = time.perf_counter() - t
+    train_k1 = k1.launches  # main path ends
+    with open(f"{tmp.name}/train/metrics.jsonl") as f:
+        metrics = [json.loads(line) for line in f]
+    steps = [m["step"] for m in metrics]
+    log("stage1", f"training CLI, --synthetic, batch {S1_TRAIN_B}, f32 (TF32 off), 2 steps then "
+                  f"resumed to 4: {secs:.1f} s (model set-up and checkpoints included), "
+                  f"metrics.jsonl steps {steps}, losses "
+                  f"{[round(m['loss'], 3) for m in metrics]}, K1 launches {train_k1}")
+    if steps != [0, 1, 2, 3] or train_k1 != 0 or \
+            not all(np.isfinite(v) for m in metrics for v in m.values()):
+        fail(f"the stage-1 training CLI: steps {steps}, K1 launches {train_k1}")
+    result["train_launches"] = train_k1
+    tmp.cleanup()
+
+    # ---- (d) the G+D step at batch 32: time, imgs/s, peak memory, kernels
+    smpl = make_synthetic_model(num_vertices=V_FULL, device=dev)
+    model = prohmr.init_random_(ProHMR(cfg), seed=0, training=True)
+    model = model.to(dev, memory_format=torch.channels_last)
+    disc = init_discriminator_(Discriminator(), seed=10).to(dev)
+    tb = [synthetic_batch(S1_TRAIN_B, num_scene_points=P_FULL, seed=i, device=dev)
+          for i in range(5)]
+    prohmr.initialize(model, cfg, tb[0])
+    opt, dopt = make_optimizers(model, disc)
+    step = make_prohmr_train_step(cfg, ProHMRLossWeights(), smpl, smpl, smpl, opt, dopt)
+    rng = np.random.RandomState(0)
+    mocap = [to_torch({"body_pose": rng.randn(S1_TRAIN_B, 69).astype(np.float32) * 0.3,
+                       "betas": rng.randn(S1_TRAIN_B, 10).astype(np.float32) * 0.5}, dev)
+             for _ in range(4)]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for i in range(3):  # warm-up: cuDNN algorithm selection, allocator growth
+        step(model, disc, tb[1 + i % 4], mocap[i % 4], gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = k1.launches
+    dev_ms, host_ms, losses = [], [], []
+    for i in range(20):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t = time.perf_counter()
+        start.record()
+        m = step(model, disc, tb[1 + i % 4], mocap[i % 4], gen)
+        end.record()
+        end.synchronize()
+        host_ms.append((time.perf_counter() - t) * 1e3)
+        dev_ms.append(start.elapsed_time(end))
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    if k1.launches != before or not np.isfinite(losses).all():
+        fail(f"stage-1 training steps: K1 launched {k1.launches - before} times (want 0), "
+             f"losses {losses}")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(model, disc, tb[1], mocap[0], gen)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    tr = {"ms": float(np.median(dev_ms)), "host_ms": float(np.median(host_ms)),
+          "peak_mib": peak, "kernel_ms": sum(e.self_device_time_total for e in events) / 1e3,
+          "kernel_launches": sum(e.count for e in events),
+          "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3 for e in top}}
+    tr["imgs_per_s"] = S1_TRAIN_B / tr["host_ms"] * 1e3
+    log("stage1", f"G+D step, batch {S1_TRAIN_B}, f32 (TF32 off), median of 20 after 3 warm-up: "
+                  f"{tr['ms']:.2f} ms (CUDA events), {tr['host_ms']:.2f} ms (host clock), "
+                  f"{tr['imgs_per_s']:.1f} imgs/s, peak memory {peak:.0f} MiB; losses "
+                  f"{losses[0]:.3f} -> {losses[-1]:.3f}; one step under the profiler: "
+                  f"{tr['kernel_ms']:.2f} ms of kernels in {tr['kernel_launches']} launches, the "
+                  "largest: " + ", ".join(f"{k} {v:.2f}" for k, v in tr["top_kernels_ms"].items()))
+    result["train_step"] = tr
+    return result
+
+
 def main() -> None:
     smi = phase_device()
     from egohmr_tpu_torch.models import EgoHMRConfig
@@ -1267,11 +1567,15 @@ def main() -> None:
     guided = phase_guided(cfg)
     evaluated = phase_eval(cfg)
     trained = phase_train(cfg)
+    stage1 = phase_stage1()
     # launches: over the main paths, each counted from 0 just before it (K3's
     # main path is the probe's own entry point, counted in its phase)
-    kernels[0].update(launches=unguided + guided["k1"] + evaluated["k1"] + trained["k1"],
+    kernels[0].update(launches=(unguided + guided["k1"] + evaluated["k1"] + trained["k1"]
+                                + stage1["launches"] + stage1["train_launches"]),
                       launches_unguided=unguided, launches_guided=guided["k1"],
-                      launches_eval=evaluated["k1"], launches_train=trained["k1"])
+                      launches_eval=evaluated["k1"], launches_train=trained["k1"],
+                      launches_stage1=stage1["launches"],
+                      launches_stage1_train=stage1["train_launches"], stage1=stage1["k1"])
     kernels[1].update(launches=guided["k2"] + evaluated["k2"] + trained["k2"],
                       launches_unguided=0, launches_guided=guided["k2"],
                       launches_eval=evaluated["k2"], launches_train=trained["k2"],

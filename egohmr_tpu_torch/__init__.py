@@ -4,7 +4,10 @@ It carries stage-2 inference (unguided and collision-guided DDIM-5 and
 DDPM-50 sampling, entered through `serving.Predictor`), the stage-2
 evaluation path (`eval.test_egohmr`, with the EgoBody dataset, the metrics and
 the renderer), stage-2 training (`train.train_egohmr`, with resumable
-checkpoints) and the tensor-core rate probe (`tools.probe_int8_mma`). The
+checkpoints), stage 1 (the conditional Glow flow of `models.prohmr`, its
+evaluation CLI `eval.test_prohmr`, whose translations stage 2 takes, and its
+GAN training CLI `train.train_prohmr`), the scene preprocessing
+(`preprocess`) and the tensor-core rate probe (`tools.probe_int8_mma`). The
 package imports `torch`, NumPy, SciPy and PIL only, never JAX and never
 `egohmr_tpu`, so it runs on a machine without JAX.
 

@@ -221,7 +221,10 @@ class EgoBodyDataset:
     def iter_batches(
         self, batch_size: int, *, shuffle: Optional[bool] = None,
         drop_last: bool = True, seed: int = 0, num_threads: int = 0,
+        skip_batches: int = 0,
     ) -> Iterator[Dict]:
+        """The epoch of order `seed`, in batches, from batch `skip_batches`
+        on; the skipped batches are not loaded."""
         from .. import native
 
         use_native = self.use_native_loader and native.available()
@@ -231,7 +234,7 @@ class EgoBodyDataset:
         if shuffle:
             np.random.RandomState(seed).shuffle(order)
         n = len(order) if not drop_last else len(order) - len(order) % batch_size
-        for start in range(0, n, batch_size):
+        for start in range(skip_batches * batch_size, n, batch_size):
             idxs = order[start:start + batch_size]
             if not use_native:
                 yield collate([self[int(i)] for i in idxs])

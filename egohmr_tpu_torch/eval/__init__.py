@@ -1,4 +1,5 @@
-"""Inference pipeline, metrics and the evaluation CLI (`test_egohmr`)."""
+"""Inference pipeline, metrics and the evaluation CLIs (`test_egohmr`,
+stage 2; `test_prohmr`, stage 1)."""
 from .metrics import (
     apd,
     diversity_std,

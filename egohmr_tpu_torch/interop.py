@@ -1,11 +1,14 @@
 """JAX param trees -> the port's `state_dict`.
 
-A NumPy-only mirror of egohmr_tpu/interop/torch_export.py:export_egohmr
-(which cannot be imported here: importing any `egohmr_tpu` module imports
-JAX). The output uses the reference key layout, so
-`EgoHMR.load_state_dict(state_dict_from_jax(params), strict=True)` loads
-JAX-trained weights, and the reference's released `.pt` files load as they
-are. Every array is copied, never aliased.
+NumPy-only mirrors of egohmr_tpu/interop/torch_export.py's
+`export_egohmr`, `export_prohmr` (with `export_conditional_glow`) and
+`export_discriminator` (which cannot be imported here: importing any
+`egohmr_tpu` module imports JAX). The output uses the reference key layout,
+so `EgoHMR.load_state_dict(state_dict_from_jax(params), strict=True)`,
+`ProHMR.load_state_dict(prohmr_state_dict_from_jax(params), strict=True)`
+and `Discriminator.load_state_dict(discriminator_state_dict_from_jax(p),
+strict=True)` load JAX-trained weights, and the reference's released `.pt`
+files load as they are. Every array is copied, never aliased.
 """
 from __future__ import annotations
 
@@ -117,3 +120,65 @@ def export_arrays(params: dict) -> Flat:
 def state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
     """Stage-2 param tree (NumPy or JAX arrays) -> the port's state_dict."""
     return {k: torch.from_numpy(v) for k, v in export_arrays(params).items()}
+
+
+def export_conditional_glow(p: dict, prefix: str = "flow.flow.") -> Flat:
+    """Glow param tree -> the nflows `ConditionalGlow` keys (ActNorm,
+    LULinear and coupling at `_transform._transforms.{3k, 3k+1, 3k+2}`)."""
+    out: Flat = {}
+    b = f"{prefix}_transform._transforms."
+    for k, step in enumerate(p["steps"]):
+        an, lu = step["actnorm"], step["linear"]
+        out[f"{b}{3 * k}.log_scale"] = _np(an["log_scale"]).reshape(1, -1)
+        out[f"{b}{3 * k}.shift"] = _np(an["shift"]).reshape(1, -1)
+        for name in ("lower_entries", "upper_entries", "unconstrained_upper_diag", "bias"):
+            out[f"{b}{3 * k + 1}.{name}"] = _np(lu[name])
+        net = step["coupling"]["net"]
+        net_prefix = f"{b}{3 * k + 2}.transform_net."
+        _lin(out, net_prefix + "initial_layer", net["initial_layer"])
+        _lin(out, net_prefix + "final_layer", net["final_layer"])
+        for j, blk in enumerate(net["blocks"]):
+            _lin(out, f"{net_prefix}blocks.{j}.linear_layers.0", blk["l0"])
+            _lin(out, f"{net_prefix}blocks.{j}.linear_layers.1", blk["l1"])
+            if "context_layer" in blk:
+                _lin(out, f"{net_prefix}blocks.{j}.context_layer", blk["context_layer"])
+    return out
+
+
+def export_prohmr(params: dict) -> Flat:
+    """Stage-1 param tree -> {reference state_dict key: NumPy array}."""
+    out: Flat = {}
+    _resnet(out, "backbone.", params["backbone"])
+    _pointnet(out, "scene_enc.", params["scene_enc"])
+    out.update(export_conditional_glow(params["flow"], "flow.flow."))
+    head = params["fc_head"]
+    _lin(out, "flow.fc_head.layers.0", head["l0"])
+    _lin(out, "flow.fc_head.layers.2", head["l1"])
+    out["flow.fc_head.init_betas"] = _np(head["init_betas"]).reshape(1, 10)
+    out["flow.fc_head.init_cam"] = _np(head["init_cam"]).reshape(1, 3)
+    return out
+
+
+def export_discriminator(p: dict, prefix: str = "discriminator.") -> Flat:
+    """Discriminator param tree -> the reference keys: the per-joint 1x1
+    convolutions as [out, in, 1, 1], everything else as linears."""
+    out: Flat = {}
+    for name in ("D_conv1", "D_conv2"):
+        _linear_as_conv1x1(out, prefix + name, p[name])
+    for i, lp in enumerate(p["pose_out"]):
+        _lin(out, f"{prefix}pose_out.{i}", lp)
+    for name in ("betas_fc1", "betas_fc2", "betas_out",
+                 "D_alljoints_fc1", "D_alljoints_fc2", "D_alljoints_out"):
+        _lin(out, prefix + name, p[name])
+    return out
+
+
+def prohmr_state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
+    """Stage-1 param tree (NumPy or JAX arrays) -> `ProHMR`'s state_dict."""
+    return {k: torch.from_numpy(v) for k, v in export_prohmr(params).items()}
+
+
+def discriminator_state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
+    """Discriminator param tree -> `Discriminator`'s state_dict (no
+    `discriminator.` prefix)."""
+    return {k: torch.from_numpy(v) for k, v in export_discriminator(params, "").items()}

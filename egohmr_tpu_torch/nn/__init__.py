@@ -1,11 +1,13 @@
-"""Modules and forward functions of the stage-2 model. The K1 kernel
+"""Modules and forward functions of the two stages' models. The K1 kernel
 wrapper (`pointnet_fused`) builds its CUDA library only when first called."""
 from .core import batchnorm, batchnorm_eval, bf16_tensors, cast_params_bf16, linear, mm, silu
 from .embedders import (
+    FCHead,
     FCHeadBeta,
     InputProcess,
     TimestepEmbedder,
     TranslEnc,
+    fc_head,
     fc_head_beta,
     input_process,
     timestep_embed,

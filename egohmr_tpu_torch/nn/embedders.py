@@ -74,6 +74,32 @@ class FCHeadBeta(nn.Module):
         self.init_betas = nn.Parameter(init_betas.reshape(1, 10).clone())
 
 
+class FCHead(nn.Module):
+    """Stage 1's betas and camera head. `init_betas` [1, 10] and `init_cam`
+    [1, 3] are buffers, as in the reference `state_dict`; training hands
+    them to AdamW (`train.prohmr_loop.trainable_tensors`), as the JAX package
+    trains them."""
+
+    def __init__(self, in_dim: int, hidden: int = 1024,
+                 init_betas: Optional[torch.Tensor] = None,
+                 init_cam: Optional[torch.Tensor] = None):
+        super().__init__()
+        self.layers = nn.Sequential(nn.Linear(in_dim, hidden), nn.ReLU(),
+                                    nn.Linear(hidden, 13))
+        if init_betas is None:
+            init_betas = torch.zeros(10)
+        if init_cam is None:
+            init_cam = torch.tensor([0.9, 0.0, 0.0])
+        self.register_buffer("init_betas", init_betas.reshape(1, 10).clone().float())
+        self.register_buffer("init_cam", init_cam.reshape(1, 3).clone().float())
+
+
+def fc_head(mod: FCHead, feats: torch.Tensor):
+    """[B, ctx] -> (betas [B, 10], cam [B, 3])."""
+    offset = linear(mod.layers[2], torch.relu(linear(mod.layers[0], feats)))
+    return offset[:, :10] + mod.init_betas, offset[:, 10:] + mod.init_cam
+
+
 def fc_head_beta(mod: FCHeadBeta, feats: torch.Tensor) -> torch.Tensor:
     """[B, ctx] -> betas [B, 10]."""
     offset = linear(mod.layers[2], torch.relu(linear(mod.layers[0], feats)))

@@ -1,4 +1,5 @@
-"""Stage-2 training: the step (`loop.py`) and the CLI (`train_egohmr.py`)."""
+"""Training: stage 2's step (`loop.py`) and CLI (`train_egohmr.py`), stage
+1's GAN step (`prohmr_loop.py`) and CLI (`train_prohmr.py`)."""
 from .loop import (
     TrainConfig,
     gt_pose_to_x_start,
@@ -7,6 +8,13 @@ from .loop import (
     stage2_loss,
     trainable_tensors,
 )
+from .prohmr_loop import (
+    discriminator_loss,
+    generator_loss,
+    make_optimizers,
+    make_prohmr_train_step,
+)
 
-__all__ = ["TrainConfig", "gt_pose_to_x_start", "make_optimizer", "make_train_step",
+__all__ = ["TrainConfig", "discriminator_loss", "generator_loss", "gt_pose_to_x_start",
+           "make_optimizer", "make_optimizers", "make_prohmr_train_step", "make_train_step",
            "stage2_loss", "trainable_tensors"]

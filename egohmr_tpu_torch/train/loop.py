@@ -61,14 +61,25 @@ class TrainConfig:
     mixed_precision: bool = True
 
 
-def trainable_tensors(model: EgoHMR) -> Dict[str, torch.Tensor]:
-    """What AdamW updates, by name: every parameter and the buffers of
-    `TRAINED_BUFFERS`, which this sets to require gradients. Call it once
-    the model is on its device: moving the model replaces its buffers."""
+def trainable_tensors(model: nn.Module,
+                      buffers: Tuple[str, ...] = TRAINED_BUFFERS) -> Dict[str, torch.Tensor]:
+    """What AdamW updates, by name: every parameter and the named `buffers`
+    (stage 2's `TRAINED_BUFFERS` by default), which this sets to require
+    gradients. Call it once the model is on its device: moving the model
+    replaces its buffers."""
     named = dict(model.named_parameters())
-    for name in TRAINED_BUFFERS:
+    for name in buffers:
         named[name] = model.get_buffer(name).requires_grad_(True)
     return named
+
+
+def fill_missing_grads(optimizer: torch.optim.Optimizer) -> None:
+    """optax decays every leaf and counts every step; torch's AdamW skips a
+    tensor without a gradient, so one that got none takes a zero one."""
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
 
 
 def make_optimizer(model: EgoHMR, tcfg: TrainConfig) -> torch.optim.AdamW:
@@ -178,12 +189,7 @@ def make_train_step(
             max_collision_points=tcfg.max_collision_points,
             mixed_precision=tcfg.mixed_precision, generator=generator, **draws)
         loss.backward()
-        # optax decays every leaf and counts every step; torch's AdamW skips
-        # a tensor without a gradient, so one that got none takes a zero one
-        for group in optimizer.param_groups:
-            for p in group["params"]:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
+        fill_missing_grads(optimizer)
         optimizer.step()
         return {k: v.detach() for k, v in terms.items()}
 

@@ -390,3 +390,124 @@ def test_k3_plain_glue_on_the_card_matches_the_cpu(cuda):
     for r in (1, 7):
         got = k3.plain("C_int8_glue", r, 1, *(t.to(cuda) for t in ops)).cpu()
         assert torch.equal(got, k3.plain("C_int8_glue", r, 1, *ops))
+
+
+@pytest.mark.gpu
+def test_k1_at_the_stage1_evaluation_shape(cuda):
+    """K1 as stage 1's evaluation runs it, once per batch of 10 clouds of
+    20,000 points, through `models.prohmr.conditioning_feats` with
+    `pointnet_impl="fused"` on the card: one launch, the pooled feature
+    within two bf16 ulps of the largest pooled value of the plain version,
+    and the scene features within the same bar of the f32 plain encoder's,
+    carried through `fc_c`."""
+    from dataclasses import replace
+
+    from egohmr_tpu_torch.data import synthetic_batch
+    from egohmr_tpu_torch.models import ProHMR, ProHMRConfig
+    from egohmr_tpu_torch.models import prohmr
+
+    cfg = ProHMRConfig(pointnet_impl="fused")
+    model = prohmr.init_random_(ProHMR(cfg), seed=0).to(cuda).eval()
+    batch = synthetic_batch(10, seed=200, device=cuda)
+    pts = batch["scene_pcd_verts_full"]
+    before = k1.launches
+    with torch.no_grad():
+        ctx = prohmr.conditioning_feats(model, cfg, batch)
+        torch.cuda.synchronize()
+        assert k1.launches == before + 1
+        plain = prohmr.conditioning_feats(model, replace(cfg, pointnet_impl="xla"), batch)
+        got = k1.pointnet_fused_feature(model.scene_enc, pts)
+        ref = k1.pointnet_fused_reference(model.scene_enc, pts)
+    assert ctx.shape == (10, 2566) and torch.isfinite(ctx).all()
+    assert (got - ref).abs().max().item() <= 2.0 ** -7 * ref.abs().max().item()
+    scene, scene32 = ctx[:, -512:], plain[:, -512:]
+    assert (scene - scene32).abs().max().item() <= 2.0 ** -7 * scene32.abs().max().item()
+    assert torch.equal(ctx[:, :-512], plain[:, :-512])
+
+
+@pytest.mark.gpu
+def test_stage1_forward_and_gd_step_on_the_card_match_the_cpu(cuda):
+    """Stage 1 at a tiny width (ResNet-18, a Glow of 2 steps of 1 block at
+    hidden 32, 64 scene points, a 64-vertex synthetic body, batch 4), f32
+    with TF32 off, on the card and on the CPU from the same weights, batch
+    and draws (z and the NLL noise handed in, as a CUDA and a CPU generator
+    draw other numbers). The eval forward: every `ProHMROutput` field at
+    rtol 1e-4, atol 1e-4 x its largest. One G+D step through
+    `make_prohmr_train_step`, with the stage-2 training test's bars for the
+    card against the CPU: its metrics at rtol 1e-4; the gradients outside the ResNet and the
+    discriminator's at rtol 1e-3, atol 1e-3 x the tensor's largest; the
+    ResNet's each within 1e-2 of its norm and the whole gradient's cosine
+    over 0.99999; the BatchNorm statistics at rtol 1e-5 (atol 1e-5 x the
+    largest); every weight after AdamW within 2 lr of the CPU's."""
+    from egohmr_tpu_torch.data import synthetic_batch, to_torch
+    from egohmr_tpu_torch.models import Discriminator, ProHMR, ProHMRConfig, ProHMRLossWeights
+    from egohmr_tpu_torch.models import init_discriminator_, prohmr
+    from egohmr_tpu_torch.smpl import make_synthetic_model
+    from egohmr_tpu_torch.train import make_optimizers, make_prohmr_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = ProHMRConfig(resnet_layers=18, img_feat_dim=512, scene_feat_dim=32,
+                       pointnet_hidden_dim=32, flow_hidden=32, flow_layers=2, flow_depth=1,
+                       fc_head_hidden=32)
+    B, S, lr = 4, 3, 1e-4
+    batch = synthetic_batch(B, num_scene_points=64, img_size=64, seed=3)
+    # the training init, ActNorms at the identity: after `initialize` a
+    # feature's scale reaches 1 / 0.008, and the NLL of another batch 1e6
+    init = prohmr.init_random_(ProHMR(cfg), seed=0, training=True).state_dict()
+    dinit = init_discriminator_(Discriminator(), seed=1).state_dict()
+    g = torch.Generator().manual_seed(5)
+    z = torch.randn(B, S, 144, generator=g)
+    z[:, 0] = 0
+    draws = {"z": z[:, :cfg.num_train_samples].clone(), "nll_noise": torch.randn(B, 144, generator=g)}
+    mocap = {"body_pose": 0.3 * torch.randn(B, 69, generator=g),
+             "betas": 0.5 * torch.randn(B, 10, generator=g)}
+    results = {}
+    for device in (cuda, torch.device("cpu")):
+        model, disc = ProHMR(cfg), Discriminator()
+        model.load_state_dict(init)
+        disc.load_state_dict(dinit)
+        model, disc = model.to(device), disc.to(device)
+        smpl = [make_synthetic_model(seed=s, num_vertices=64, device=device) for s in range(3)]
+        tb = to_torch(batch, device)
+        with torch.no_grad():
+            out = prohmr.forward(model.eval(), cfg, smpl[0], tb, S, z=z.to(device))
+        opt, dopt = make_optimizers(model, disc, lr, 1e-4)
+        step = make_prohmr_train_step(cfg, ProHMRLossWeights(), *smpl, opt, dopt)
+        metrics = step(model, disc, tb, {k: v.to(device) for k, v in mocap.items()},
+                       **{k: v.to(device) for k, v in draws.items()})
+        grads = {**{k: p.grad.cpu() for k, p in model.named_parameters()},
+                 **{"D." + k: p.grad.cpu() for k, p in disc.named_parameters()}}
+        weights = {**{k: v.cpu() for k, v in model.state_dict().items()},
+                   **{"D." + k: v.cpu() for k, v in disc.state_dict().items()}}
+        results[device.type] = ({k: v.cpu() for k, v in out._asdict().items()},
+                                {k: v.cpu() for k, v in metrics.items()}, grads, weights)
+    (og, mg, gg, wg), (oc, mc, gc, wc) = results["cuda"], results["cpu"]
+    missed = []  # every miss at once: the card's run is the expensive part
+
+    def held(key, got, want, rtol, atol):
+        excess = ((got - want).abs() - rtol * want.abs() - atol).max().item()
+        if excess > 0:
+            missed.append((key, excess, (got - want).abs().max().item()))
+
+    for k in oc:
+        held(("output", k), og[k], oc[k], 1e-4, 1e-4 * oc[k].abs().max().item())
+    for k in mc:
+        held(("metric", k), mg[k], mc[k], 1e-4, 1e-7)
+    for k in gc:
+        if not k.startswith("backbone."):
+            held(("grad", k), gg[k], gc[k], 1e-3, 1e-3 * gc[k].abs().max().item())
+        else:
+            rel = ((gg[k] - gc[k]).norm() / gc[k].norm().clamp_min(1e-30)).item()
+            if rel > 1e-2:
+                missed.append((("grad norm", k), rel))
+    a = torch.cat([gg[k].reshape(-1).double() for k in gc])
+    b = torch.cat([gc[k].reshape(-1).double() for k in gc])
+    cos = (a @ b / (a.norm() * b.norm())).item()
+    if not cos > 0.99999:
+        missed.append((("gradient cosine",), cos))
+    for k in wc:
+        if k.endswith(("running_mean", "running_var")):
+            held(("stat", k), wg[k], wc[k], 1e-5, 1e-5 * wc[k].abs().max().item())
+        elif wc[k].is_floating_point():
+            held(("weight", k), wg[k], wc[k], 0.0, 2 * lr * (1 + 1e-3))
+    assert not missed, "\n".join(map(str, missed))

@@ -234,10 +234,11 @@ def test_map_batches_in_order(predictor):
 
 
 def test_port_never_imports_jax():
-    """No file under the package (its `tools/`, `viz/` and `utils/`
-    included) and not chip_smoke.py imports JAX or egohmr_tpu, and importing
-    the package's entry points and running the CPU serving path leaves JAX
-    unloaded."""
+    """No file under the package (its `tools/`, `viz/`, `utils/`, `flow/`
+    and `preprocess/` included, and stage 1's model, discriminator, training
+    step and CLIs) and not chip_smoke.py imports JAX or egohmr_tpu, and
+    importing the package's entry points and running the CPU serving path
+    leaves JAX unloaded."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     pkg = os.path.join(root, "egohmr_tpu_torch")
     sources = [os.path.join(root, "chip_smoke.py")] + [
@@ -245,7 +246,10 @@ def test_port_never_imports_jax():
     walked = {os.path.relpath(f, pkg) for f in sources[1:]}
     assert {"tools/probe_int8_mma.py", "viz/renderer.py", "utils/checkpoint.py", "native.py",
             "eval/test_egohmr.py", "data/egobody.py", "train/loop.py", "train/train_egohmr.py",
-            "data/prefetch.py", "utils/logging.py", "utils/profiling.py"} <= walked
+            "data/prefetch.py", "utils/logging.py", "utils/profiling.py", "flow/glow.py",
+            "models/prohmr.py", "models/discriminator.py", "train/prohmr_loop.py",
+            "train/train_prohmr.py", "eval/test_prohmr.py", "preprocess/mesh_io.py",
+            "preprocess/scene.py"} <= walked
     for f in sources:
         for node in ast.walk(ast.parse(open(f).read())):
             names = ([a.name for a in node.names] if isinstance(node, ast.Import)
@@ -270,6 +274,8 @@ def test_port_never_imports_jax():
         "import egohmr_tpu_torch.eval.test_egohmr, egohmr_tpu_torch.tools.probe_int8_mma\n"
         "import egohmr_tpu_torch.train.train_egohmr, egohmr_tpu_torch.utils.profiling\n"
         "import egohmr_tpu_torch.viz, egohmr_tpu_torch.utils.checkpoint, egohmr_tpu_torch.native\n"
+        "import egohmr_tpu_torch.eval.test_prohmr, egohmr_tpu_torch.train.train_prohmr\n"
+        "import egohmr_tpu_torch.preprocess.scene, egohmr_tpu_torch.flow\n"
         "assert 'jax' not in sys.modules and 'egohmr_tpu' not in sys.modules\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

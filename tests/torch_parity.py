@@ -19,12 +19,18 @@ TINY = dict(resnet_layers=18, img_feat_dim=512, scene_feat_dim=32,
             pointnet_hidden_dim=32, transl_embed_dim=16, timestep_embed_dim=32,
             input_process_dim=32, gcn_hid_dim=64, gcn_layers=2)
 _BN = {"scale", "bias", "mean", "var"}
+_ACTNORM = {"log_scale", "shift"}
+_LU = {"lower_entries", "upper_entries", "unconstrained_upper_diag", "bias"}
 
 
 def randomize(params, seed: int = 0) -> dict:
     """A NumPy copy of a JAX param tree with the values that the JAX init
     leaves degenerate drawn at random: BatchNorm statistics (init 0/1),
-    GCN `adj2` (init 1e-6) and the PointNet `fc_1` weights (init 0)."""
+    GCN `adj2` (init 1e-6), the PointNet `fc_1` weights (init 0), and in a
+    Glow flow the ActNorm scale and shift and the LU linear (identity at
+    init) and each coupling block's last layer (U(+-1e-3) at init), so that
+    no flow step is close to the identity. The LU triangles are drawn at
+    0.3 / sqrt(F), which keeps their inverses well conditioned."""
     rng = np.random.RandomState(seed)
 
     def walk(node):
@@ -33,7 +39,22 @@ def randomize(params, seed: int = 0) -> dict:
                 c = np.asarray(node["mean"]).shape[0]
                 return {"scale": 1 + 0.1 * rng.randn(c), "bias": 0.1 * rng.randn(c),
                         "mean": 0.1 * rng.randn(c), "var": 1 + 0.2 * rng.rand(c)}
+            if set(node) == _ACTNORM:
+                f = np.asarray(node["shift"]).shape[0]
+                return {"log_scale": 0.2 * rng.randn(f), "shift": 0.3 * rng.randn(f)}
+            if set(node) == _LU:
+                f = np.asarray(node["bias"]).shape[0]
+                n = np.asarray(node["lower_entries"]).shape[0]
+                return {"lower_entries": 0.3 / np.sqrt(f) * rng.randn(n),
+                        "upper_entries": 0.3 / np.sqrt(f) * rng.randn(n),
+                        "unconstrained_upper_diag": np.asarray(node["unconstrained_upper_diag"])
+                        + 0.3 * rng.randn(f),
+                        "bias": 0.1 * rng.randn(f)}
             out = {k: walk(v) for k, v in node.items()}
+            if "context_layer" in out and "l1" in out:  # a coupling net's residual block
+                w = out["l1"]["w"]
+                out["l1"] = {"w": rng.randn(*w.shape) / np.sqrt(w.shape[0]),
+                             "b": 0.1 * rng.randn(w.shape[1])}
             if "adj2" in out:
                 out["adj2"] = 0.1 * rng.randn(*out["adj2"].shape)
             if "fc_1" in out and not np.any(out["fc_1"]["w"]):
@@ -65,3 +86,38 @@ def tiny_pair(seed: int = 0, **overrides):
     model = EgoHMR(tcfg)
     model.load_state_dict(state_dict_from_jax(params), strict=True)
     return jcfg, tcfg, params, model.eval()
+
+
+# stage 1 at tiny widths: a flow of 2 steps of 1 block at hidden 32
+TINY_PROHMR = dict(resnet_layers=18, img_feat_dim=512, scene_feat_dim=32,
+                   pointnet_hidden_dim=32, flow_hidden=32, flow_layers=2, flow_depth=1,
+                   fc_head_hidden=32)
+
+
+def tiny_prohmr_pair(seed: int = 0, **overrides):
+    """(jax_cfg, port_cfg, numpy params, port model) of stage 1 on the same
+    randomised weights, loaded with `strict=True`."""
+    from egohmr_tpu.models.prohmr import ProHMRConfig as JProHMRConfig
+    from egohmr_tpu.models.prohmr import init_prohmr
+    from egohmr_tpu_torch.interop import prohmr_state_dict_from_jax
+    from egohmr_tpu_torch.models import ProHMR, ProHMRConfig
+
+    kw = {**TINY_PROHMR, **overrides}
+    jcfg, tcfg = JProHMRConfig(**kw), ProHMRConfig(**kw)
+    rng = np.random.RandomState(seed + 100)
+    params = randomize(init_prohmr(jax.random.PRNGKey(seed), jcfg, jnp.asarray(
+        0.3 * rng.randn(10).astype(np.float32)), jnp.asarray([0.9, 0.05, -0.03])), seed)
+    model = ProHMR(tcfg)
+    model.load_state_dict(prohmr_state_dict_from_jax(params), strict=True)
+    return jcfg, tcfg, params, model.eval()
+
+
+def jax_stage1_draws(key, cfg, batch_size: int):
+    """(z [B, S, 144] with sample 0 the mode, nll_noise [B, 144]) as
+    `egohmr_tpu.train.prohmr_loop.generator_loss` draws them from `key`."""
+    k_sample, k_noise = jax.random.split(key)
+    S = cfg.num_train_samples
+    z = np.zeros((batch_size, S, cfg.flow_dim), np.float32)
+    z[:, 1:] = np.asarray(jax.random.normal(k_sample, (batch_size, S - 1, cfg.flow_dim)))
+    noise = jax.random.normal(jax.random.split(k_noise)[0], (batch_size, 144))
+    return {"z": torch.tensor(z), "nll_noise": torch.tensor(np.array(noise))}
