@@ -60,6 +60,23 @@ Phases (any failure exits non-zero):
                true) conditioned on the translations of its results.pkl;
                the training CLI, 2 steps resumed to 4 at batch 32 (K1 0
                launches); the G+D step's ms, imgs/s, peak memory and kernels
+  9. learned — the learned collision backends (the distilled occupancy and
+               signed-distance nets) at full width: (a) the three shipped
+               artifacts on the card, each held to its sidecar's agreement
+               bar less 0.02 on draws made on the card (labels through K2)
+               and to the CPU's query on CPU-made inputs; (b) the evaluation
+               query, 40 bodies x 20,000 points with each 192-wide net, its
+               time, peak memory and chunking; (c) learned-guided DDIM-5 at
+               batch 64 and DDPM-50 at batch 16, bf16 with K1 (K1 once and
+               K2 never per request), request and guided-step times, peak
+               memory, and guidance lowering the learned collision loss at
+               raised weights; (d) the evaluation CLI with
+               `--collision_backend occupancy` and `test_egohmr_volsmpl` at
+               their defaults (K1 and K2 once per batch), against their f32
+               plain runs and the sdf backend's collision ratio; (e) both
+               distillation CLIs for 1000 steps (the loss falls, agreement
+               beats an untrained net's and the all-outside answer's, the
+               artifact reloads) and K2 at the label shapes
 Before the last line come a JSON object with one entry per kernel and the
 card's name and power limit; the last line is {"ok": true, "device":
 {...}}. Nothing runs without a GPU.
@@ -67,6 +84,7 @@ card's name and power limit; the last line is {"ok": true, "device":
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1556,6 +1574,528 @@ def phase_stage1() -> dict:
     return result
 
 
+# ---------------------------------------------------------------- phase 9
+# the shipped distilled collision nets; the two 192-wide ones, one per
+# backend, serve the evaluation-shape query and the guided requests
+LEARNED_ARTIFACTS = ("occupancy_synthetic.npz", "occupancy_synthetic_signed.npz",
+                     "volsdf_synthetic.npz")
+WIDE = {"occupancy": "occupancy_synthetic_signed.npz", "volsdf": "volsdf_synthetic.npz"}
+# distillation steps: after 300 both nets still give the all-outside
+# answer on the held-out draw
+DISTILL_STEPS = 1000
+# the widths `occupancy_synthetic_signed.npz` was distilled at: at the
+# occupancy CLI's defaults (no part code) the net stays near the
+# all-outside answer for longer
+SIGNED_RECIPE = ["--part_embed_dim", "32", "--hidden_dim", "192", "--num_layers", "5"]
+
+
+def artifact(name: str) -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "artifacts", name)
+
+
+def load_learned(name: str, device):
+    """(net on `device`, sidecar) of a shipped artifact."""
+    from egohmr_tpu_torch.collision.neural_occupancy import load_occupancy
+    from egohmr_tpu_torch.collision.neural_sdf import load_sdfnet
+
+    with open(artifact(name) + ".json") as f:
+        meta = json.load(f)
+    load = load_sdfnet if name.startswith("volsdf") else load_occupancy
+    return load(artifact(name), device), meta
+
+
+def body_of(meta: dict, device):
+    """The body an artifact was distilled on (its sidecar's `body`)."""
+    from egohmr_tpu_torch.smpl import make_synthetic_model, make_synthetic_watertight_model
+
+    if meta["body"] == "synthetic_watertight":
+        return make_synthetic_watertight_model(device=device)
+    return make_synthetic_model(num_vertices=V_FULL, device=device)
+
+
+def learned_field(net, out, betas, pts):
+    """The backend's own field: occupancy, or signed distance."""
+    from egohmr_tpu_torch.collision.neural_occupancy import occupancy_query
+    from egohmr_tpu_torch.collision.neural_sdf import SDFNetConfig, sdf_query
+
+    query = sdf_query if isinstance(net.cfg, SDFNetConfig) else occupancy_query
+    return query(net, out, betas, pts)
+
+
+def learned_loss(net, out, betas, pts):
+    """The backend's own collision loss per body, [B]."""
+    from egohmr_tpu_torch.collision.neural_occupancy import occupancy_collision_loss
+    from egohmr_tpu_torch.collision.neural_sdf import SDFNetConfig, sdf_collision_loss
+
+    field = learned_field(net, out, betas, pts)
+    if isinstance(net.cfg, SDFNetConfig):
+        return sdf_collision_loss(field)
+    return occupancy_collision_loss(field)
+
+
+def field_flops(net, rows: int) -> float:
+    """The decoder's f32 operations for `rows` (body, part, point) rows: the
+    split first layer's point half (3 x hidden) and the hidden and output
+    layers; the per-(body, part) half is left out."""
+    widths = [m.weight.shape[0] for m in net.decoder]  # nn.Linear weights are [out, in]
+    macs = 3 * widths[0] + sum(a * b for a, b in zip(widths[:-1], widths[1:]))
+    return 2.0 * macs * rows
+
+
+def phase_learned_artifacts() -> None:
+    """(a) each shipped artifact on the card: its held-out agreement on draws
+    made on the card (labels through K2) against its sidecar's bar less
+    0.02, and its query on CPU-made inputs against the CPU's."""
+    from egohmr_tpu_torch.collision.neural_occupancy import (occupancy_agreement,
+                                                             sample_labeled_batch)
+    from egohmr_tpu_torch.collision.neural_sdf import sdf_agreement
+    from egohmr_tpu_torch.smpl import SMPLOutput
+
+    dev = torch.device("cuda")
+    for name in LEARNED_ARTIFACTS:
+        net, meta = load_learned(name, dev)
+        body = body_of(meta, dev)
+        g = torch.Generator(dev).manual_seed(123)
+        kw = dict(n_bodies=16, points_per_body=1024, label_mode=meta["label_mode"],
+                  sign_k=meta.get("sign_k", 4))
+        if name.startswith("volsdf"):
+            acc, bar = sdf_agreement(net, body, g, **kw)["sign_agreement"], meta["agreement_bar"]
+            shipped = meta["sign_agreement"]
+        else:
+            acc, bar = occupancy_agreement(net, body, g, **kw), meta["accuracy_bar"]
+            shipped = meta["accuracy"]
+        # the same CPU-made inputs through the CPU's net and the card's
+        cpu_net, _ = load_learned(name, "cpu")
+        b = sample_labeled_batch(torch.Generator().manual_seed(5), body_of(meta, "cpu"),
+                                 batch_bodies=4, points_per_body=2048, label_mode="proximity")
+        with torch.no_grad():
+            want = learned_field(cpu_net, b.smpl_out, b.betas, b.points)
+            got = learned_field(net, SMPLOutput(*(t.to(dev) for t in b.smpl_out)),
+                                b.betas.to(dev), b.points.to(dev)).cpu()
+        err = (got - want).abs().max().item()
+        close = torch.allclose(got, want, rtol=1e-4, atol=1e-5)
+        log("learned", f"(a) {name} ({meta['body']}, {meta['label_mode']} labels, hidden "
+                       f"{net.cfg.hidden_dim} x {net.cfg.num_layers}): agreement on the card's "
+                       f"draws, 16 bodies x 1024 points, {acc:.4f} (sidecar {shipped:.4f}, bar "
+                       f"{bar - 0.02:.2f}); card vs CPU query on 4 x 2048 CPU-made points: max "
+                       f"abs {err:.3e} (rtol 1e-4, atol 1e-5)")
+        if not acc >= bar - 0.02:
+            fail(f"{name}: agreement {acc:.4f} on the card under {bar - 0.02:.2f}")
+        if not close:
+            fail(f"{name}: the card's query strays from the CPU's")
+
+
+def phase_learned_query() -> dict:
+    """(b) the learned collision ratio's query at the evaluation shape, 8
+    images x 5 samples = 40 bodies x 20,000 points, with each 192-wide net:
+    CUDA-event time, peak memory, and the chunked query against an unchunked
+    one on a 2,048-point slice."""
+    from functools import partial
+
+    from egohmr_tpu_torch.collision.neural_occupancy import (NUM_PARTS, QUERY_ROWS,
+                                                             field_in_chunks, occupancy_from_raw)
+    from egohmr_tpu_torch.collision.neural_sdf import SDFNetConfig, sdf_from_raw
+    from egohmr_tpu_torch.smpl import lbs, make_synthetic_model
+
+    dev = torch.device("cuda")
+    n = 40
+    g = torch.Generator(dev).manual_seed(9)
+    smpl = make_synthetic_model(num_vertices=V_FULL, device=dev)
+    betas = torch.randn(n, 10, generator=g, device=dev) * 0.5
+    aa = torch.randn(n, 24, 3, generator=g, device=dev) * 0.2
+    out = lbs(smpl, betas, aa[:, 0], aa[:, 1:].reshape(n, 69), pose2rot=True)
+    lo, hi = out.vertices.amin(1, keepdim=True) - 0.3, out.vertices.amax(1, keepdim=True) + 0.3
+    scene = lo + (hi - lo) * torch.rand(n, P_FULL, 3, generator=g, device=dev)
+    timed = {}
+    for backend, name in WIDE.items():
+        net, _ = load_learned(name, dev)
+        head = (partial(sdf_from_raw, net.cfg) if isinstance(net.cfg, SDFNetConfig)
+                else occupancy_from_raw)
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            full = field_in_chunks(net, out, betas, scene, head)
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+            ms = time_ms(lambda: field_in_chunks(net, out, betas, scene, head), reps=5)
+            ref = learned_field(net, out, betas, scene[:, :2048])
+        err = (full[:, :2048] - ref).abs().max().item()
+        rows = n * NUM_PARTS * P_FULL
+        flops = field_flops(net, rows)
+        log("learned", f"(b) {backend} ({name}), {n} bodies x {P_FULL} points = {rows:,} rows in "
+                       f"chunks of {QUERY_ROWS:,}: {ms:.2f} ms by CUDA events (median of 5), "
+                       f"{flops / ms / 1e9:.1f} TFLOP/s f32 of the decoder's {flops / 1e12:.2f} "
+                       f"TFLOP (f32 CUDA-core peak 67), peak memory {peak:.0f} MiB above the "
+                       f"inputs; chunked vs unchunked on the first 2048 points: max abs "
+                       f"{err:.3e}")
+        if not (torch.isfinite(full).all() and full.shape == (n, P_FULL)):
+            fail(f"{backend}: the evaluation-shape query is not finite or misshapen")
+        if not torch.allclose(full[:, :2048], ref, rtol=1e-4, atol=1e-5):
+            fail(f"{backend}: the chunked query strays from the unchunked one")
+        timed[backend] = {"ms": ms, "peak_mib": peak, "tflop": flops / 1e12}
+    return timed
+
+
+# (sampler, respacing, batch, guided steps per request)
+LEARNED_GUIDED_RUNS = (("ddim", "ddim5", 64, 4), ("ddpm", "", 16, 11))
+
+
+# guidance weights for the check that the learned guidance lowers
+# collisions: the reference's times the batch (the loss is a batch mean)
+# times 1e5, as in phase 5. The reference's DDPM weight is the CLI's: 2 for
+# occupancy (`test_egohmr`), 30 for volsdf (`test_egohmr_volsmpl`)
+def raised(backend: str, sampler: str, B: int) -> dict:
+    if sampler == "ddim":
+        return dict(ddim_scale=1.0 * B * 1e5)
+    return dict(cond_grad_weight=(30.0 if backend == "volsdf" else 2.0) * B * 1e5)
+
+
+def phase_learned_guided(cfg) -> dict:
+    """(c) learned-guided sampling at full width, bf16 with K1: guided
+    DDIM-5 at batch 64 and guided DDPM-50 at batch 16 with each backend's
+    192-wide net on the body it was distilled on; request latency, the
+    guided step's time, launches (K1 once, K2 never) and peak memory; then
+    guidance acts, on scenes with 1024 points inside the unguided bodies'
+    legs, at raised weights."""
+    from egohmr_tpu_torch.collision import knn as k2
+    from egohmr_tpu_torch.collision import topk_scene_points
+    from egohmr_tpu_torch.collision.neural_occupancy import NUM_PARTS, make_occupancy_guidance_fn
+    from egohmr_tpu_torch.collision.neural_sdf import make_volsdf_guidance_fn
+    from egohmr_tpu_torch.data import synthetic_batch, to_torch
+    from egohmr_tpu_torch.diffusion import GuidanceConfig, make_schedule
+    from egohmr_tpu_torch.eval import sample_bodies
+    from egohmr_tpu_torch.eval.pipeline import _to_f32, tile_condition
+    from egohmr_tpu_torch.geometry import rotmat_to_rot6d
+    from egohmr_tpu_torch.models import BodyRepStats, EgoHMR, compute_condition, init_random_
+    from egohmr_tpu_torch.nn import cast_params_bf16
+    from egohmr_tpu_torch.nn import pointnet_fused as k1
+    from egohmr_tpu_torch.smpl import SMPLOutput
+
+    dev = torch.device("cuda")
+    fused = replace(cfg, pointnet_impl="fused")
+    model = cast_params_bf16(init_random_(EgoHMR(cfg), seed=0).eval()).to(
+        dev, memory_format=torch.channels_last)
+    rest = rotmat_to_rot6d(torch.eye(3).expand(24, 3, 3)).reshape(144).to(dev)
+    stats = BodyRepStats(rest, torch.full((144,), 0.2, device=dev))
+    runs = [(sampler, make_schedule(50, "cosine", respacing).to(dev), B, n_guided)
+            for sampler, respacing, B, n_guided in LEARNED_GUIDED_RUNS]
+    counts, timed = {"k1": 0, "k2": 0}, {}
+
+    def sample(net, smpl, backend, sampler, schedule, batch, guided, **kw):
+        out, _ = sample_bodies(model, fused, smpl, stats, schedule, batch,
+                               torch.Generator(device=dev).manual_seed(1), 1, sampler=sampler,
+                               with_guidance=guided, collision_backend=backend, occ_net=net,
+                               bf16=True, params_precast=True, **kw)
+        return out
+
+    def losses(net, out, batch):
+        """Per-body learned collision loss of the served bodies against the
+        guidance's 4096 scene points nearest the body's origin."""
+        n = out["pred_pose_rotmat"].shape[0]
+        smpl_out = SMPLOutput(vertices=None, joints=None,
+                              full_pose=out["pred_pose_rotmat"].reshape(n, 24, 3, 3),
+                              joints_smpl=out["pred_joints_smpl"].reshape(n, 24, 3))
+        scene = batch["scene_pcd_verts_full"] - batch["smpl_params"]["transl"][:, None]
+        with torch.no_grad():
+            return learned_loss(net, smpl_out, out["pred_betas"].reshape(n, 10),
+                                topk_scene_points(scene, 4096)).cpu().numpy()
+
+    for backend, name in WIDE.items():
+        net, meta = load_learned(name, dev)
+        smpl = body_of(meta, dev)
+        # the body's parts are closed ellipsoids, each rigidly skinned to one
+        # joint, so a point between a leg vertex and its part's centre lies
+        # inside the leg; the points fill the legs' +x halves only, as a
+        # scene surface that cuts into them from one side would (points all
+        # round a limb would pull it every way at once)
+        owner = smpl.lbs_weights.argmax(1)
+        leg = torch.nonzero(torch.isin(owner, torch.tensor(LEG_JOINTS, device=dev)))[:, 0]
+        one_hot = torch.nn.functional.one_hot(owner, 24).float()  # [V, 24]
+        for sampler, schedule, B, n_guided in runs:
+            batch = to_torch(synthetic_batch(B, num_scene_points=P_FULL, seed=20), dev)
+            free = sample(net, smpl, backend, sampler, schedule, batch, False)
+            # 1024 scene points inside the unguided bodies' legs
+            v = free["pred_vertices"][:, 0]
+            centres = (one_hot.t() @ v) / one_hot.sum(0)[:, None]  # [B, 24, 3]
+            front = (v[:, leg, 0] > centres[:, owner[leg], 0]).float()  # [B, L]
+            g = torch.Generator(dev).manual_seed(0)
+            pick = leg[torch.multinomial(front, 1024, replacement=True, generator=g)]
+            u = 0.9 * torch.rand(B, 1024, 1, generator=g, device=dev)
+            vp = torch.gather(v, 1, pick[..., None].expand(-1, -1, 3))
+            cp = torch.gather(centres, 1, owner[pick][..., None].expand(-1, -1, 3))
+            scene = batch["scene_pcd_verts_full"].clone()
+            scene[:, :1024] = cp + u * (vp - cp) + batch["smpl_params"]["transl"][:, None]
+            batch = {**batch, "scene_pcd_verts_full": scene}
+            sample(net, smpl, backend, sampler, schedule, batch, True)  # warm-up
+            torch.cuda.synchronize()
+            k1.launches = k2.launches = 0  # main path starts: count launches from here
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            out = sample(net, smpl, backend, sampler, schedule, batch, True)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            d1, d2 = k1.launches, k2.launches  # main path ends
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            counts["k1"] += d1
+            counts["k2"] += d2
+            # one guided step alone, at this batch
+            with torch.no_grad():
+                b16 = {**batch, "img": batch["img"].to(torch.bfloat16)}
+                cond = _to_f32(tile_condition(compute_condition(model, fused, b16), 1))
+                make = make_occupancy_guidance_fn if backend == "occupancy" else \
+                    make_volsdf_guidance_fn
+                guide = make(net, smpl, cond, stats)
+                x = torch.randn(B, 144, generator=torch.Generator().manual_seed(3)).to(dev)
+                tt = torch.zeros(B, dtype=torch.int64, device=dev)
+                step_ms = time_ms(lambda: guide(x, tt), reps=5)
+            rows = B * NUM_PARTS * 4096
+            log("learned", f"(c) {backend}, guided {sampler} x{schedule.num_timesteps}, batch {B}, "
+                           f"bf16 + K1, body {meta['body']}: request {ms:.1f} ms by the host "
+                           f"clock ({B / ms * 1e3:.1f} bodies/s), one guided step {step_ms:.2f} ms "
+                           f"by CUDA events ({rows:,} rows forward and backward), {n_guided} "
+                           f"guided steps; K1 launches {d1}, K2 launches {d2}; peak memory "
+                           f"{peak:.2f} GiB")
+            if d1 != 1 or d2 != 0:
+                fail(f"learned-guided {backend} {sampler}: K1 launched {d1} times (want 1), "
+                     f"K2 {d2} (want 0)")
+            for k, shape in {"pred_pose_6d": (B, 1, 144), "pred_vertices":
+                             (B, 1, smpl.num_vertices, 3)}.items():
+                if out[k].shape != shape or not torch.isfinite(out[k]).all():
+                    fail(f"learned-guided {backend} {sampler}: {k} misshapen or not finite")
+            timed[f"{backend}_{sampler}"] = {"request_ms": ms, "guided_step_ms": step_ms,
+                                             "peak_gib": peak}
+            # guidance acts: at raised weights the served bodies collide less
+            free = sample(net, smpl, backend, sampler, schedule, batch, False)
+            got = sample(net, smpl, backend, sampler, schedule, batch, True,
+                         guidance=GuidanceConfig(**raised(backend, sampler, B)))
+            lf, lg = losses(net, free, batch), losses(net, got, batch)
+            moved = (got["pred_vertices"] - free["pred_vertices"]).abs().max().item()
+            better, drop = int((lg < lf).sum()), 1.0 - lg.mean() / max(lf.mean(), 1e-30)
+            weights = raised(backend, sampler, B)
+            log("learned", f"(c) {backend}, {sampler}, raised weights {weights}: "
+                           f"vertices moved by up to {moved:.3e} m; learned collision loss "
+                           f"guided {lg.mean():.6e}, unguided {lf.mean():.6e} (least unguided "
+                           f"{lf.min():.3e}): down {drop * 100:.2f}% (bar 1%), {better} of {B} "
+                           f"bodies collide less (bar {0.8 * B:.0f})")
+            if backend == "volsdf" and sampler == "ddim":
+                # The last DDIM step adds to the denoiser's x0 a gradient taken
+                # at x_t's pose; the random denoiser's x0 is another pose, and
+                # the signed distance is zero-gradient outside the thin limbs,
+                # so at x_t's pose the points rarely sit in the legs (the
+                # vertices move by millimetres). The soft occupancy still
+                # pulls there; the learned SDF is held to the bar in DDPM.
+                if not moved > 0:
+                    fail(f"learned-guided {backend} {sampler}: the guidance changed nothing")
+            elif not (drop > 0.01 and better >= 0.8 * B):
+                fail(f"learned-guided {backend} {sampler}: the guided bodies do not collide "
+                     "less than the unguided ones")
+    counts["timed"] = timed
+    return counts
+
+
+LEARNED_EVAL_RUNS = {
+    "test_egohmr --collision_backend occupancy":
+        ("test_egohmr", ["--collision_backend", "occupancy", "--occupancy_ckpt"]),
+    "test_egohmr_volsmpl": ("test_egohmr_volsmpl", []),
+}
+
+
+def phase_learned_eval() -> dict:
+    """(d) the evaluation CLIs with the learned backends at full width, 8
+    images x 5 samples x 2 batches, bf16 with K1, at the CLI's defaults
+    (guided DDPM-50): K1 and K2 once per batch (K2 for the contact score
+    only), every error key within 5 mm of the same CLI's f32 plain run, and
+    the collision ratio within 0.05 of the mesh-SDF backend's on the same
+    seed."""
+    from egohmr_tpu_torch.collision import knn as k2
+    from egohmr_tpu_torch.eval import test_egohmr, test_egohmr_volsmpl
+    from egohmr_tpu_torch.nn import pointnet_fused as k1
+
+    mods = {"test_egohmr": test_egohmr, "test_egohmr_volsmpl": test_egohmr_volsmpl}
+    n_batches = 2
+    # phase 6's data: half the bodies at the image's edge, so that the
+    # *_invis keys average over many joints
+    test_egohmr.synthetic_batch = edge_batch
+    sdf = test_egohmr.main(EVAL_ARGS)  # the mesh-SDF backend, same seed and data
+    counts = {"k1": 0, "k2": 0}
+    for name, (mod, extra) in LEARNED_EVAL_RUNS.items():
+        if extra:
+            extra = extra + [artifact("occupancy_synthetic.npz")]
+        k1.launches = k2.launches = 0  # main path starts: count launches from here
+        t = time.perf_counter()
+        summary = mods[mod].main(EVAL_ARGS + extra)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        d1, d2 = k1.launches, k2.launches  # main path ends
+        counts["k1"] += d1
+        counts["k2"] += d2
+        f32 = mods[mod].main(EVAL_ARGS + extra + F32_PLAIN)
+        log("learned", f"(d) {name}: {secs:.2f} s for the whole CLI run (model set-up "
+                       f"included), K1 launches {d1}, K2 launches {d2}; coll_ratio bf16 "
+                       f"{summary['coll_ratio']:.4f}, f32 {f32['coll_ratio']:.4f}, sdf backend "
+                       f"{sdf['coll_ratio']:.4f}")
+        if d1 != n_batches or d2 != n_batches:
+            fail(f"{name}: K1 launched {d1} times, K2 {d2} (want {n_batches} each: once per "
+                 "batch, K2 for the contact score)")
+        if not np.isfinite(summary["coll_ratio"]) or not 0 <= summary["coll_ratio"] <= 1:
+            fail(f"{name}: coll_ratio {summary['coll_ratio']}")
+        if not abs(summary["coll_ratio"] - sdf["coll_ratio"]) < 0.05:
+            fail(f"{name}: coll_ratio {summary['coll_ratio']:.4f} is not within 0.05 of the "
+                 f"sdf backend's {sdf['coll_ratio']:.4f}")
+        if set(summary) != set(f32):
+            fail(f"{name}: summary keys differ between the bf16 and the f32 run")
+        gaps = {}
+        for key in summary:
+            v, w = summary[key], f32[key]
+            if np.isnan(v) != np.isnan(w) or np.isinf(v):
+                fail(f"{name}: {key} is {v} (f32 plain on the card {w})")
+            if ("mpjpe" in key or "v2v" in key) and np.isfinite(w):
+                gaps[key] = abs(v - w)
+        worst = max(gaps, key=gaps.get)
+        log("learned", f"(d) {name}: largest error-key gap to the f32 plain run "
+                       f"{gaps[worst]:.3f} mm ({worst}; bar 5)")
+        if not gaps[worst] <= 5.0:
+            fail(f"{name}: {worst} strays {gaps[worst]:.2f} mm from the f32 run")
+    return counts
+
+
+def phase_learned_distill() -> dict:
+    """(e) both distillation CLIs on the card, `--synthetic_watertight
+    --label_mode winding`, for DISTILL_STEPS steps (distill_sdf at its
+    defaults, distill_occupancy at SIGNED_RECIPE's widths):
+    the loss falls, trained agreement beats an untrained net's and the
+    all-outside answer's by 0.02 (the sdf net's over 0.75), the artifact
+    reloads through the port's loader, ms per step;
+    then K2 at the label shapes against its plain version, timed beside
+    `baddbmm` + `argmin`."""
+    import tempfile
+
+    from egohmr_tpu_torch.collision import knn as k2
+    from egohmr_tpu_torch.collision import neural_occupancy as occ
+    from egohmr_tpu_torch.collision import neural_sdf as nsdf
+    from egohmr_tpu_torch.smpl import make_synthetic_model, make_synthetic_watertight_model
+    from egohmr_tpu_torch.train import distill_occupancy, distill_sdf
+
+    dev = torch.device("cuda")
+    counts, timed = {"k2": 0}, {}
+    body = make_synthetic_watertight_model(device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, cli, module, fn, cfg_cls, agree, key in (
+                ("occupancy", distill_occupancy, occ, "distill_occupancy", occ.OccupancyConfig,
+                 lambda net, g: occ.occupancy_agreement(net, body, g, label_mode="winding"),
+                 "accuracy"),
+                ("sdf", distill_sdf, nsdf, "distill_sdf", nsdf.SDFNetConfig,
+                 lambda net, g: nsdf.sdf_agreement(net, body, g)["sign_agreement"],
+                 "sign_agreement")):
+            losses, spans = [], []
+            inner = getattr(module, fn)
+
+            def timed_distill(*a, _inner=inner, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                net = _inner(*a, **kw, losses=losses)
+                torch.cuda.synchronize()
+                spans.append(time.perf_counter() - t0)
+                return net
+
+            setattr(module, fn, timed_distill)
+            try:
+                k2.launches = 0  # main path starts: count launches from here
+                meta = cli.main(["--synthetic_watertight", "--label_mode", "winding",
+                                 "--steps", str(DISTILL_STEPS), "--log_every", "100",
+                                 "--save_path", f"{tmp}/{name}.npz"]
+                                + (SIGNED_RECIPE if name == "occupancy" else []))
+                d2 = k2.launches  # main path ends
+            finally:
+                setattr(module, fn, inner)
+            counts["k2"] += d2
+            first, last = (float(torch.stack(losses[s]).mean()) for s in (slice(0, 5),
+                                                                           slice(-5, None)))
+            cfg = cfg_cls(**meta["occupancy_config" if name == "occupancy" else "sdf_config"])
+            untrained = occ.PartFieldNet(cfg, generator=torch.Generator().manual_seed(0)).to(dev)
+            base = agree(untrained, torch.Generator(dev).manual_seed(1))
+            # the held-out draw's share of outside points: what a net that
+            # calls every point outside agrees on
+            held = occ.sample_labeled_batch(torch.Generator(dev).manual_seed(1), body,
+                                            batch_bodies=16, points_per_body=1024,
+                                            label_mode="winding")
+            outside = float((held.sdf >= 0).float().mean())
+            path = f"{tmp}/{name}.npz" + ("" if meta["passed"] else ".failed.npz")
+            reloaded = (nsdf.load_sdfnet if name == "sdf" else occ.load_occupancy)(path, dev)
+            again = agree(reloaded, torch.Generator(dev).manual_seed(1))
+            ms = spans[0] * 1e3 / DISTILL_STEPS
+            log("learned", f"(e) distill_{name}: {DISTILL_STEPS} steps at batch 8 x 1024 points, "
+                           f"hidden {cfg.hidden_dim} x {cfg.num_layers}, part code "
+                           f"{cfg.part_embed_dim}, "
+                           f"{ms:.2f} ms a step (label draw, forward, backward, Adam; host clock "
+                           f"around the loop); loss first 5 {first:.5f}, last 5 {last:.5f} (bar "
+                           f"0.8 x); held-out agreement {meta[key]:.4f} (untrained "
+                           f"{base:.4f}, all-outside {outside:.4f}), after reload "
+                           f"{again:.4f}; K2 launches {d2}")
+            if not last < 0.8 * first:
+                fail(f"distill_{name}: the loss does not fall")
+            if not (meta[key] > max(base, outside + 0.02)
+                    and (name != "sdf" or meta[key] > 0.75)):
+                fail(f"distill_{name}: trained agreement {meta[key]:.4f} (untrained {base:.4f}, "
+                     f"all-outside {outside:.4f})")
+            if not abs(again - meta[key]) < 2e-3 or d2 < DISTILL_STEPS:
+                fail(f"distill_{name}: reloaded agreement {again:.4f} or K2 launches {d2}")
+            timed[name] = {"ms_per_step": ms, "loss_first5": first, "loss_last5": last,
+                           "agreement": meta[key], "untrained": base}
+
+    # K2 at the label shapes: the training batch and the held-out batch on
+    # the watertight body, and the training batch on the 6890-vertex body
+    def library(pts, verts):
+        v_sq = torch.sum(verts * verts, dim=-1)[:, None, :]
+        return torch.baddbmm(v_sq, pts, verts.transpose(1, 2), alpha=-2.0).argmin(-1)
+
+    shapes = {}
+    for B, smpl in ((8, body), (16, body), (8, make_synthetic_model(num_vertices=V_FULL,
+                                                                     device=dev))):
+        b = occ.sample_labeled_batch(torch.Generator(dev).manual_seed(B), smpl, batch_bodies=B,
+                                     points_per_body=1024, label_mode="proximity")
+        pts, verts = b.points.contiguous(), b.smpl_out.vertices.contiguous()
+        got = k2.nearest_vertex_idx(pts, verts)
+        differ, err, ok = k2_agrees(pts, verts, got, k2.nearest_vertex_idx_reference(pts, verts))
+        V = verts.shape[1]
+        if not ok:
+            # compare the two picks' distances in f64 before blaming K2
+            d64 = [torch.linalg.norm(pts.double() - torch.gather(
+                verts.double(), 1, i[..., None].expand(-1, -1, 3)), dim=-1)
+                for i in (got, k2.nearest_vertex_idx_reference(pts, verts))]
+            gap64 = (d64[0] - d64[1]).abs().max().item()
+            log("learned", f"K2 at [{B}, 1024] x {V}: off the f32 bar; in f64 the two picks' "
+                           f"distances differ by up to {gap64:.3e} m")
+            fail(f"K2 disagrees with its plain version at the label shape [{B}, 1024] x {V}")
+        t = {"ms": time_ms(lambda: k2.nearest_vertex_idx(pts, verts), reps=20),
+             "plain_ms": time_ms(lambda: k2.nearest_vertex_idx_reference(pts, verts), reps=10),
+             "library_ms": time_ms(lambda: library(pts, verts), reps=10),
+             **bound(6.0 * B * 1024 * V, PEAK_F32, B * 1024 * 12 + B * V * 12 + B * 1024 * 8)}
+        log("learned", f"(e) K2 at the label shape [{B}, 1024] x {V}: {differ} of {B * 1024} "
+                       f"indices differ from the plain version (max gap {err:.3e}); kernel "
+                       f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, baddbmm+argmin "
+                       f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms by {t['bound_by']}")
+        shapes[f"{B}x1024x{V}"] = t
+    counts.update(timed=timed, k2_label_shapes=shapes)
+    return counts
+
+
+def phase_learned(cfg) -> dict:
+    """Phase 9: the learned collision backends, (a)-(e)."""
+    phase_learned_artifacts()
+    query = phase_learned_query()
+    guided = phase_learned_guided(cfg)
+    evaluated = phase_learned_eval()
+    distilled = phase_learned_distill()
+    log("learned", json.dumps({"query": query, "guided": guided["timed"],
+                               "distill": distilled["timed"]}))
+    return {"k1": guided["k1"] + evaluated["k1"],
+            "k2": guided["k2"] + evaluated["k2"] + distilled["k2"],
+            "query": query, "guided": guided["timed"], "distill": distilled["timed"],
+            "k2_label_shapes": distilled["k2_label_shapes"]}
+
+
 def main() -> None:
     smi = phase_device()
     from egohmr_tpu_torch.models import EgoHMRConfig
@@ -1568,15 +2108,19 @@ def main() -> None:
     evaluated = phase_eval(cfg)
     trained = phase_train(cfg)
     stage1 = phase_stage1()
+    learned = phase_learned(cfg)
     # launches: over the main paths, each counted from 0 just before it (K3's
     # main path is the probe's own entry point, counted in its phase)
     kernels[0].update(launches=(unguided + guided["k1"] + evaluated["k1"] + trained["k1"]
-                                + stage1["launches"] + stage1["train_launches"]),
+                                + stage1["launches"] + stage1["train_launches"] + learned["k1"]),
+                      launches_learned=learned["k1"],
                       launches_unguided=unguided, launches_guided=guided["k1"],
                       launches_eval=evaluated["k1"], launches_train=trained["k1"],
                       launches_stage1=stage1["launches"],
                       launches_stage1_train=stage1["train_launches"], stage1=stage1["k1"])
-    kernels[1].update(launches=guided["k2"] + evaluated["k2"] + trained["k2"],
+    kernels[1].update(launches=guided["k2"] + evaluated["k2"] + trained["k2"] + learned["k2"],
+                      launches_learned=learned["k2"],
+                      distill_label_shapes=learned["k2_label_shapes"],
                       launches_unguided=0, launches_guided=guided["k2"],
                       launches_eval=evaluated["k2"], launches_train=trained["k2"],
                       eval_shapes={k: evaluated[k] for k in

@@ -6,8 +6,12 @@ evaluation path (`eval.test_egohmr`, with the EgoBody dataset, the metrics and
 the renderer), stage-2 training (`train.train_egohmr`, with resumable
 checkpoints), stage 1 (the conditional Glow flow of `models.prohmr`, its
 evaluation CLI `eval.test_prohmr`, whose translations stage 2 takes, and its
-GAN training CLI `train.train_prohmr`), the scene preprocessing
-(`preprocess`) and the tensor-core rate probe (`tools.probe_int8_mma`). The
+GAN training CLI `train.train_prohmr`), the learned collision backends
+(the distilled occupancy and signed-distance nets of `collision`, their
+distillation CLIs `train.distill_occupancy` and `train.distill_sdf`, the
+COAP/VolumetricSMPL converters of `interop`, and `eval.test_egohmr_volsmpl`),
+the scene preprocessing (`preprocess`) and the tensor-core rate probe
+(`tools.probe_int8_mma`). The
 package imports `torch`, NumPy, SciPy and PIL only, never JAX and never
 `egohmr_tpu`, so it runs on a machine without JAX.
 

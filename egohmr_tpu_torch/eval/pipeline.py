@@ -6,6 +6,7 @@ axis, so all S samples of all B images run in one sampling loop.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -16,6 +17,13 @@ from ..collision import (
     min_body_scene_distance,
     signed_distance,
 )
+from ..collision.neural_occupancy import (
+    PartFieldNet,
+    field_in_chunks,
+    make_occupancy_guidance_fn,
+    occupancy_from_raw,
+)
+from ..collision.neural_sdf import make_volsdf_guidance_fn, sdf_from_raw
 from ..diffusion import DiffusionSchedule, GuidanceConfig, sample_loop
 from ..models import (
     BodyRepStats,
@@ -28,7 +36,7 @@ from ..models import (
     model_outputs,
 )
 from ..nn import cast_params_bf16
-from ..smpl import SMPLModel, lbs, vertex_normals
+from ..smpl import SMPLModel, SMPLOutput, lbs, vertex_normals
 from .metrics import (
     apd,
     diversity_std,
@@ -66,6 +74,7 @@ def sample_bodies(
     guidance: GuidanceConfig = GuidanceConfig(),
     use_stage1_transl: bool = True,
     collision_backend: str = "sdf",
+    occ_net: Optional[PartFieldNet] = None,
     bf16: bool = False,
     params_precast: bool = False,
     guidance_refresh_every: int = 1,
@@ -77,10 +86,13 @@ def sample_bodies(
     adds the collision-score gradient on the low-noise steps (`guidance`
     holds its thresholds and weights). `use_stage1_transl` puts the stage-1
     translation (`stage1_transl_full`, when the batch has it) in place of
-    the input one. `collision_backend` names the
-    gradient's source; only the exact mesh SDF ("sdf") is ported.
-    `guidance_refresh_every` > 1 reuses the guided step's selection pass
-    across that many adjacent guided steps (an approximation; 1 is exact).
+    the input one. `collision_backend` names the gradient's source: the
+    exact mesh SDF ("sdf"), or the learned occupancy ("occupancy") or
+    signed-distance ("volsdf") net `occ_net` (`load_occupancy` /
+    `load_sdfnet`, on the model's device), which runs in f32 on the bf16
+    path too. `guidance_refresh_every` > 1 reuses the guided step's
+    selection pass across that many adjacent guided steps (an
+    approximation; 1 is exact; the mesh SDF's only).
     The whole function runs without autograd; the guidance takes its
     gradient in a scope of its own.
 
@@ -95,12 +107,11 @@ def sample_bodies(
             "guidance_refresh_every > 1 is an sdf-backend knob (it caches "
             f"the mesh-SDF selection pass); the {collision_backend} backend "
             "has no per-step selection stage to reuse")
-    if collision_backend in ("occupancy", "volsdf"):
-        raise NotImplementedError(
-            f"collision_backend {collision_backend!r}: the learned collision "
-            "backends are not ported yet (ROADMAP slice 7)")
-    if collision_backend != "sdf":
+    if collision_backend not in ("sdf", "occupancy", "volsdf"):
         raise ValueError(f"unknown collision_backend: {collision_backend}")
+    if with_guidance and collision_backend != "sdf" and occ_net is None:
+        raise ValueError(f"collision_backend {collision_backend!r} needs a learned "
+                         "collision net (occ_net)")
     if use_stage1_transl and "stage1_transl_full" in batch:
         batch = dict(batch)
         batch["smpl_params"] = dict(batch["smpl_params"])
@@ -126,9 +137,14 @@ def sample_bodies(
     if with_guidance:
         # cond_s is f32 here on the bf16 path too: the guidance, like SMPL
         # and the reprojection, runs in f32
-        guidance_fn = make_guidance_fn(
-            model, cfg, smpl, cond_s, stats,
-            selection_refresh_every=guidance_refresh_every)
+        if collision_backend == "occupancy":
+            guidance_fn = make_occupancy_guidance_fn(occ_net, smpl, cond_s, stats)
+        elif collision_backend == "volsdf":
+            guidance_fn = make_volsdf_guidance_fn(occ_net, smpl, cond_s, stats)
+        else:
+            guidance_fn = make_guidance_fn(
+                model, cfg, smpl, cond_s, stats,
+                selection_refresh_every=guidance_refresh_every)
     _, x0 = sample_loop(schedule, denoise, generator, (B * num_samples, 144),
                         sampler=sampler, guidance_fn=guidance_fn,
                         guidance=guidance, noise=noise)
@@ -184,20 +200,23 @@ def evaluate_batch(
     eval_contact: bool = True,
     contact_thresh: float = 0.02,
     collision_backend: str = "sdf",
+    occ_net: Optional[PartFieldNet] = None,
 ) -> EvalResult:
     """The metrics of one batch. `outputs` are [B, S, ...] from
-    `sample_bodies`, `cond` its per-image condition. Only the exact mesh SDF
-    ("sdf") computes the collision ratio here; the learned backends are not
-    ported yet. On CUDA tensors the collision ratio and the contact score
+    `sample_bodies`, `cond` its per-image condition. The collision ratio is
+    the share of the scene's points inside a body's bbox and inside the
+    body: by the exact mesh SDF ("sdf", sdf < 0), the learned occupancy
+    ("occupancy", occ > 0.5) or the learned signed distance ("volsdf",
+    sdf < 0) of `occ_net`, queried for the neutral body in chunks of points
+    (`field_in_chunks`). On CUDA tensors the mesh SDF and the contact score
     each launch kernel K2 once, over all B * S bodies (`signed_distance`
     from the whole scene cloud to the body, `min_body_scene_distance` from
-    the body to the cloud)."""
-    if collision_backend in ("occupancy", "volsdf"):
-        raise NotImplementedError(
-            f"collision_backend {collision_backend!r}: the learned collision "
-            "backends are not ported yet (ROADMAP slice 7)")
-    if collision_backend != "sdf":
+    the body to the cloud); the learned ratio launches none."""
+    if collision_backend not in ("sdf", "occupancy", "volsdf"):
         raise ValueError(f"unknown collision_backend: {collision_backend}")
+    if eval_collision and collision_backend != "sdf" and occ_net is None:
+        raise ValueError(f"collision_backend {collision_backend!r} needs a learned "
+                         "collision net (occ_net)")
     B, S = outputs["pred_keypoints_3d"].shape[:2]
     gtp = batch["smpl_params"]
 
@@ -258,7 +277,25 @@ def evaluate_batch(
         # the bodies are posed without translation; the scene is canonical
         # to match. Image-major, sample-minor, as the bodies are
         scene_s = cond.scene_pcd.repeat_interleave(S, dim=0)
-        if eval_collision:
+        if eval_collision and collision_backend != "sdf":
+            # the SMPLOutput rebuilt from the tensors model_outputs gave,
+            # rather than LBS run again over B * S bodies
+            out_bs = SMPLOutput(
+                vertices=verts_flat,
+                joints=outputs["pred_keypoints_3d"].reshape(B * S, -1, 3),
+                full_pose=outputs["pred_pose_rotmat"].reshape(B * S, 24, 3, 3),
+                joints_smpl=outputs["pred_joints_smpl"].reshape(B * S, 24, 3))
+            betas_s = outputs["pred_betas"].reshape(B * S, 10)
+            if collision_backend == "occupancy":
+                inside = field_in_chunks(occ_net, out_bs, betas_s, scene_s,
+                                         occupancy_from_raw) > 0.5
+            else:
+                inside = field_in_chunks(occ_net, out_bs, betas_s, scene_s,
+                                         partial(sdf_from_raw, occ_net.cfg)) < 0.0
+            mask = bbox_mask(scene_s, verts_flat)
+            coll = (torch.sum((inside & mask).float(), dim=-1)
+                    / scene_s.shape[-2]).reshape(B, S)
+        elif eval_collision:
             normals = vertex_normals(verts_flat, smpl_neutral.faces)
             mask = bbox_mask(scene_s, verts_flat)
             sdf = signed_distance(scene_s, verts_flat, normals)

@@ -85,10 +85,18 @@ def parse_args(argv=None, **default_overrides):
                         "sdf backend only")
     p.add_argument("--collision_backend", type=str, default="sdf",
                    choices=["sdf", "occupancy", "volsdf"],
-                   help="'sdf': exact mesh SDF; the learned backends "
-                        "('occupancy', 'volsdf') are not ported yet")
-    p.add_argument("--occupancy_ckpt", type=str, default="")
-    p.add_argument("--sdfnet_ckpt", type=str, default="")
+                   help="'sdf': exact mesh SDF; 'occupancy': distilled "
+                        "COAP-family net (needs --occupancy_ckpt, see "
+                        "egohmr_tpu_torch.train.distill_occupancy); 'volsdf': "
+                        "distilled VolumetricSMPL-family signed-distance "
+                        "net (needs --sdfnet_ckpt, see "
+                        "egohmr_tpu_torch.train.distill_sdf)")
+    p.add_argument("--occupancy_ckpt", type=str, default="",
+                   help="distilled occupancy .npz artifact (or a COAP "
+                        ".pt release, converted on load)")
+    p.add_argument("--sdfnet_ckpt", type=str, default="",
+                   help="distilled signed-distance .npz artifact (or a "
+                        "VolumetricSMPL .ckpt release, converted on load)")
     p.add_argument("--only_mask_img_cond", type=b, default=True)
     p.add_argument("--pelvis_vis_loosen", type=b, default=True)
     p.add_argument("--gcn_nonlocal_layer", type=b, default=False)
@@ -177,13 +185,32 @@ def _load_model(checkpoint: str, cfg: EgoHMRConfig) -> EgoHMR:
     return model
 
 
+def _load_collision_net(args, device):
+    """The learned collision net of `--collision_backend occupancy`/`volsdf`
+    (None for `sdf`), on `device`."""
+    if args.collision_backend == "occupancy":
+        if not args.occupancy_ckpt:
+            raise ValueError(
+                "--collision_backend occupancy needs --occupancy_ckpt (train one "
+                "with: python -m egohmr_tpu_torch.train.distill_occupancy)")
+        from ..collision.neural_occupancy import load_occupancy
+
+        return load_occupancy(args.occupancy_ckpt, device)
+    if args.collision_backend == "volsdf":
+        if not args.sdfnet_ckpt:
+            raise ValueError(
+                "--collision_backend volsdf needs --sdfnet_ckpt (train one with: "
+                "python -m egohmr_tpu_torch.train.distill_sdf)")
+        from ..collision.neural_sdf import load_sdfnet
+
+        return load_sdfnet(args.sdfnet_ckpt, device)
+    return None
+
+
 def main(argv=None, **default_overrides):
     args = parse_args(argv, **default_overrides)
     device = resolve_device(args.device, args.data_parallel)
-    if args.collision_backend != "sdf":
-        raise NotImplementedError(
-            f"--collision_backend {args.collision_backend}: the learned "
-            "collision backends are not ported yet (ROADMAP slice 7)")
+    occ_net = _load_collision_net(args, device)
 
     cfg = EgoHMRConfig(
         only_mask_img_cond=args.only_mask_img_cond,
@@ -265,7 +292,7 @@ def main(argv=None, **default_overrides):
             model, cfg, smpl_n, stats, schedule, batch, generator,
             args.num_samples, sampler=sampler, with_guidance=with_guidance,
             guidance=guidance, use_stage1_transl=args.two_stage,
-            collision_backend=args.collision_backend, bf16=args.bf16,
+            collision_backend=args.collision_backend, occ_net=occ_net, bf16=args.bf16,
             params_precast=args.bf16,
             guidance_refresh_every=max(1, args.guidance_refresh),
         )
@@ -274,7 +301,7 @@ def main(argv=None, **default_overrides):
             eval_with_vis_mask_pa=args.eval_with_vis_mask_pa,
             eval_collision=args.eval_coll_loss,
             eval_contact=args.eval_contact_score,
-            collision_backend=args.collision_backend,
+            collision_backend=args.collision_backend, occ_net=occ_net,
         ), outputs
 
     def host(x, n):

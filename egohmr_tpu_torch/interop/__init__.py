@@ -3,7 +3,11 @@
 NumPy-only mirrors of egohmr_tpu/interop/torch_export.py's
 `export_egohmr`, `export_prohmr` (with `export_conditional_glow`) and
 `export_discriminator` (which cannot be imported here: importing any
-`egohmr_tpu` module imports JAX). The output uses the reference key layout,
+`egohmr_tpu` module imports JAX), and the two-way map of the learned
+collision nets' weights (`collision_net_state_dict_from_jax`,
+`collision_net_from_jax`, `collision_net_to_jax`). The converters of the
+COAP and VolumetricSMPL releases are `interop.coap_convert` and
+`interop.volsmpl_convert`. The output uses the reference key layout,
 so `EgoHMR.load_state_dict(state_dict_from_jax(params), strict=True)`,
 `ProHMR.load_state_dict(prohmr_state_dict_from_jax(params), strict=True)`
 and `Discriminator.load_state_dict(discriminator_state_dict_from_jax(p),
@@ -182,3 +186,62 @@ def discriminator_state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
     """Discriminator param tree -> `Discriminator`'s state_dict (no
     `discriminator.` prefix)."""
     return {k: torch.from_numpy(v) for k, v in export_discriminator(params, "").items()}
+
+
+def collision_net_state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
+    """A learned collision net's param tree (either backend, either layout;
+    what the JAX package's `init_occupancy`/`init_sdfnet`, its converters and
+    `load_npz_tree` give) -> `PartFieldNet`'s state_dict. The shared
+    layout's `encoder.l*` and `decoder.i` become `nn.Linear`s, so their
+    [in, out] `w` is transposed to `weight` [out, in]; the
+    `per_part_networks` stacks keep their [K, in, out] layout."""
+    out: Flat = {}
+    if "part_encoder" in params:
+        for name in ("part_encoder", "part_decoder"):
+            for i, lp in enumerate(params[name]):
+                out[f"{name}.{i}.weight"] = _np(lp["w"])
+                out[f"{name}.{i}.bias"] = _np(lp["b"])
+    else:
+        for name in ("l0", "l1"):
+            _lin(out, f"encoder.{name}", params["encoder"][name])
+        for i, lp in enumerate(params["decoder"]):
+            _lin(out, f"decoder.{i}", lp)
+        if "part_embed" in params:
+            out["part_embed"] = _np(params["part_embed"])
+    return {k: torch.from_numpy(v) for k, v in out.items()}
+
+
+def collision_net_from_jax(params: dict, cfg):
+    """A `PartFieldNet` holding `params` (strict load). The shared layout is
+    built from `cfg` and must match it; the per-part layout's widths come
+    from the arrays, which `cfg` does not all hold."""
+    from ..collision.neural_occupancy import PartFieldNet
+
+    dims = {}
+    if cfg.per_part_networks:
+        for name, key in (("part_encoder", "enc_dims"), ("part_decoder", "dec_dims")):
+            shapes = [np.shape(lp["w"]) for lp in params[name]]
+            dims[key] = [shapes[0][1]] + [s[2] for s in shapes]
+    net = PartFieldNet(cfg, **dims)
+    net.load_state_dict(collision_net_state_dict_from_jax(params), strict=True)
+    return net
+
+
+def collision_net_to_jax(net) -> dict:
+    """The inverse: a `PartFieldNet` -> the JAX package's param tree, as
+    NumPy arrays (what `utils.checkpoint.save_npz` writes and the JAX
+    package's `load_occupancy`/`load_sdfnet` read)."""
+    def arr(t):
+        return t.detach().float().cpu().numpy().copy()
+
+    def lin(m):
+        return {"w": np.ascontiguousarray(arr(m.weight).T), "b": arr(m.bias)}
+
+    if net.cfg.per_part_networks:
+        return {name: [{"w": arr(lp.weight), "b": arr(lp.bias)} for lp in getattr(net, name)]
+                for name in ("part_encoder", "part_decoder")}
+    tree = {"encoder": {k: lin(net.encoder[k]) for k in ("l0", "l1")},
+            "decoder": [lin(m) for m in net.decoder]}
+    if hasattr(net, "part_embed"):
+        tree["part_embed"] = arr(net.part_embed)
+    return tree

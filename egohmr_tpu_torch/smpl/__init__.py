@@ -1,7 +1,12 @@
 """SMPL constants, linear blend skinning, the loader of the SMPL body files
 and the synthetic test model."""
 from . import constants
-from .loader import create, load_smpl_pkl, make_synthetic_model
+from .loader import (
+    create,
+    load_smpl_pkl,
+    make_synthetic_model,
+    make_synthetic_watertight_model,
+)
 from .model import (
     SMPLModel,
     SMPLOutput,
@@ -13,4 +18,5 @@ from .model import (
 
 __all__ = ["constants", "SMPLModel", "SMPLOutput", "create", "lbs",
            "lbs_apply_select", "lbs_transforms", "load_smpl_pkl",
-           "make_synthetic_model", "vertex_normals"]
+           "make_synthetic_model", "make_synthetic_watertight_model",
+           "vertex_normals"]

@@ -1,5 +1,7 @@
 """Training: stage 2's step (`loop.py`) and CLI (`train_egohmr.py`), stage
-1's GAN step (`prohmr_loop.py`) and CLI (`train_prohmr.py`)."""
+1's GAN step (`prohmr_loop.py`) and CLI (`train_prohmr.py`), and the
+distillation CLIs of the learned collision nets (`distill_occupancy.py`,
+`distill_sdf.py`)."""
 from .loop import (
     TrainConfig,
     gt_pose_to_x_start,

@@ -16,6 +16,6 @@ def resolve_device(name: str, data_parallel: bool = False) -> torch.device:
     if data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
         raise NotImplementedError(
             "--data_parallel over several devices is not ported yet (ROADMAP "
-            "slice 8): pass --data_parallel false, or show the process one "
+            "queue 1, multi-device): pass --data_parallel false, or show the process one "
             "device")
     return device

@@ -33,6 +33,7 @@ from .test_torch_data import _write_smpl_pkl
 from .torch_parity import TINY, tiny_pair, to_jax, to_np
 
 B, S, V, P = 3, 3, 300, 400
+ARTIFACTS = os.path.join(os.path.dirname(__file__), "..", "artifacts")
 EXACT = ("coll_ratio", "contact", "vis_count", "invis_count", "vertex_vis_count",
          "vertex_invis_count")
 
@@ -98,9 +99,11 @@ def test_evaluate_batch_matches_jax_field_by_field(sampled, vis_mask_pa):
 
 
 def test_evaluate_batch_options(sampled):
-    """Scores switched off are None, as in JAX; the learned backends say
-    that they are not ported; the 20,000-point default threshold applies to
-    the squared distance."""
+    """Scores switched off are None, as in JAX; the learned backends run
+    with their net and are refused without one; the 20,000-point default
+    threshold applies to the squared distance."""
+    from egohmr_tpu_torch.collision.neural_occupancy import load_occupancy
+
     jcfg, tcfg, batch, smpls, _, (tout, tcond) = sampled
     args = (tcfg, *(s[1] for s in smpls), to_torch(batch, "cpu"), tout, tcond)
     off = evaluate_batch(*args, eval_collision=False, eval_contact=False)
@@ -108,8 +111,14 @@ def test_evaluate_batch_options(sampled):
     only = evaluate_batch(*args, eval_collision=False)
     assert only.coll_ratio is None and only.contact.shape == (B, S)
     for backend in ("occupancy", "volsdf"):
-        with pytest.raises(NotImplementedError, match="slice 7"):
+        with pytest.raises(ValueError, match="needs a learned collision net"):
             evaluate_batch(*args, collision_backend=backend)
+        # no collision score, no net needed
+        assert evaluate_batch(*args, collision_backend=backend,
+                              eval_collision=False).coll_ratio is None
+    net = load_occupancy(os.path.join(ARTIFACTS, "occupancy_synthetic.npz"))
+    learned = evaluate_batch(*args, collision_backend="occupancy", occ_net=net)
+    assert learned.coll_ratio.shape == (B, S) and torch.equal(learned.contact, only.contact)
     with pytest.raises(ValueError, match="unknown collision_backend"):
         evaluate_batch(*args, collision_backend="coap")
     from egohmr_tpu_torch.collision import min_body_scene_distance
@@ -119,6 +128,58 @@ def test_evaluate_batch_options(sampled):
     mid = float(d.sort().values[4])  # between d^2 and d for distances under 1
     got = evaluate_batch(*args, contact_thresh=mid).contact.reshape(-1)
     assert torch.equal(got, (d * d < mid).float()) and not torch.equal(got, (d < mid).float())
+
+
+@pytest.mark.parametrize("artifact", ["occupancy_synthetic.npz", "volsdf_synthetic.npz"])
+def test_evaluate_batch_learned_coll_ratio_matches_jax(sampled, artifact, monkeypatch):
+    """The same sampled bodies through both `evaluate_batch`es with a learned
+    backend and a shipped net: every field as with the mesh SDF (rtol/atol
+    1e-4, counts exactly), and the collision ratio to within the points
+    whose field lies within 1e-5 of the threshold. The port's query runs in
+    chunks here (QUERY_ROWS cut to 40 points a chunk)."""
+    from egohmr_tpu.collision import neural_occupancy as jocc
+    from egohmr_tpu.collision import neural_sdf as jsdf
+    from egohmr_tpu_torch.collision import neural_occupancy as tocc
+    from egohmr_tpu_torch.collision import neural_sdf as tsdf
+
+    backend = "volsdf" if artifact.startswith("volsdf") else "occupancy"
+    path = os.path.join(ARTIFACTS, artifact)
+    params, cfg = (jsdf.load_sdfnet if backend == "volsdf" else jocc.load_occupancy)(path)
+    net = (tsdf.load_sdfnet if backend == "volsdf" else tocc.load_occupancy)(path)
+    monkeypatch.setattr(tocc, "QUERY_ROWS", B * S * 24 * 40)
+    jcfg, tcfg, batch, smpls, (jout, jcond), (tout, tcond) = sampled
+    jkw = dict(collision_backend=backend, occ_params=params, occ_cfg=cfg)
+    want = jax.jit(lambda b, o, c: jpipe.evaluate_batch(jcfg, *(s[0] for s in smpls), b, o, c,
+                                                        **jkw))(to_jax(batch), jout, jcond)
+    got = evaluate_batch(tcfg, *(s[1] for s in smpls), to_torch(batch, "cpu"), tout, tcond,
+                         collision_backend=backend, occ_net=net)
+    for name in got._fields:
+        g, w = to_np(getattr(got, name)), np.asarray(getattr(want, name))
+        assert g.shape == w.shape, name
+        if name in ("contact", "vis_count", "invis_count", "vertex_vis_count",
+                    "vertex_invis_count"):
+            np.testing.assert_array_equal(g, w, err_msg=name)
+        elif name != "coll_ratio":
+            np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4, equal_nan=True, err_msg=name)
+    # the field at every (body, point), JAX's, to count the near-threshold points
+    n = B * S
+    out_bs = jocc.SMPLOutput(
+        vertices=jout["pred_vertices"].reshape(n, -1, 3),
+        joints=jout["pred_keypoints_3d"].reshape(n, -1, 3),
+        full_pose=jout["pred_pose_rotmat"].reshape(n, 24, 3, 3),
+        joints_smpl=jout["pred_joints_smpl"].reshape(n, 24, 3))
+    scene = jnp.repeat(jcond.scene_pcd, S, axis=0)
+    betas = jout["pred_betas"].reshape(n, 10)
+    if backend == "occupancy":
+        field = jocc.occupancy_query(params, cfg, smpls[0][0], out_bs, betas, scene)
+        thresh = 0.5
+    else:
+        field = jsdf.sdf_query(params, cfg, smpls[0][0], out_bs, betas, scene)
+        thresh = 0.0
+    near = np.sum(np.abs(np.asarray(field) - thresh) < 1e-5, axis=-1).reshape(B, S)
+    coll_g, coll_w = to_np(got.coll_ratio), np.asarray(want.coll_ratio)
+    assert np.all(np.abs(coll_g - coll_w) <= near / scene.shape[1] + 1e-7)
+    assert coll_w.max() > 0  # some points are inside a body and its bbox
 
 
 def test_use_stage1_transl_matches_jax():
@@ -192,8 +253,8 @@ def test_cli_refuses_what_it_cannot_do():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tcli.main(["--synthetic", "--num_batches", "1"])  # --device cuda by default
-    for backend in ("occupancy", "volsdf"):
-        with pytest.raises(NotImplementedError, match="slice 7"):
+    for backend, flag in (("occupancy", "--occupancy_ckpt"), ("volsdf", "--sdfnet_ckpt")):
+        with pytest.raises(ValueError, match=f"--collision_backend {backend} needs {flag}"):
             tcli.main(["--synthetic", "--device", "cpu", "--collision_backend", backend])
 
 

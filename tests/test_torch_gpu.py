@@ -1,5 +1,6 @@
-"""Kernels K1, K2 and K3 on the card, each held to its plain version, and
-the evaluation CLI on the card against the CPU. Needs a
+"""Kernels K1, K2 and K3 on the card, each held to its plain version (K2
+also at the distillation label shapes), the evaluation CLI, training steps
+and the shipped learned collision nets on the card against the CPU. Needs a
 CUDA device and `nvcc`; skips without a card. Run on a GPU machine with
 `python -m pytest --noconftest tests/test_torch_gpu.py -q` (the repo's
 conftest imports JAX, which a GPU machine need not have)."""
@@ -511,3 +512,121 @@ def test_stage1_forward_and_gd_step_on_the_card_match_the_cpu(cuda):
         elif wc[k].is_floating_point():
             held(("weight", k), wg[k], wc[k], 0.0, 2 * lr * (1 + 1e-3))
     assert not missed, "\n".join(map(str, missed))
+
+
+ARTIFACTS = ("occupancy_synthetic.npz", "occupancy_synthetic_signed.npz", "volsdf_synthetic.npz")
+
+
+def _artifact(name):
+    import os
+
+    return os.path.join(os.path.dirname(__file__), "..", "artifacts", name)
+
+
+def _load_learned(name, device):
+    import json
+
+    from egohmr_tpu_torch.collision.neural_occupancy import load_occupancy
+    from egohmr_tpu_torch.collision.neural_sdf import load_sdfnet
+
+    with open(_artifact(name) + ".json") as f:
+        meta = json.load(f)
+    load = load_sdfnet if name.startswith("volsdf") else load_occupancy
+    return load(_artifact(name), device), meta
+
+
+def _field(net, out, betas, pts):
+    from egohmr_tpu_torch.collision.neural_occupancy import occupancy_query
+    from egohmr_tpu_torch.collision.neural_sdf import SDFNetConfig, sdf_query
+
+    query = sdf_query if isinstance(net.cfg, SDFNetConfig) else occupancy_query
+    return query(net, out, betas, pts)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ARTIFACTS)
+def test_shipped_artifact_on_the_card(cuda, name):
+    """Each shipped collision net on the card: held-out agreement on draws
+    made on the card (labels through K2) reaches its sidecar's bar less
+    0.02 at 4 bodies x 512 points, and the query on CPU-made inputs equals
+    the CPU's at rtol 1e-4, atol 1e-5."""
+    from egohmr_tpu_torch.collision.neural_occupancy import (occupancy_agreement,
+                                                             sample_labeled_batch)
+    from egohmr_tpu_torch.collision.neural_sdf import sdf_agreement
+    from egohmr_tpu_torch.smpl import (SMPLOutput, make_synthetic_model,
+                                       make_synthetic_watertight_model)
+
+    net, meta = _load_learned(name, cuda)
+    cpu_net, _ = _load_learned(name, "cpu")
+
+    def body(device):
+        if meta["body"] == "synthetic_watertight":
+            return make_synthetic_watertight_model(device=device)
+        return make_synthetic_model(num_vertices=6890, device=device)
+
+    g = torch.Generator(cuda).manual_seed(123)
+    kw = dict(n_bodies=4, points_per_body=512, label_mode=meta["label_mode"],
+              sign_k=meta.get("sign_k", 4))
+    before = k2.launches
+    if name.startswith("volsdf"):
+        acc, bar = sdf_agreement(net, body(cuda), g, **kw)["sign_agreement"], meta["agreement_bar"]
+    else:
+        acc, bar = occupancy_agreement(net, body(cuda), g, **kw), meta["accuracy_bar"]
+    assert k2.launches > before
+    assert acc >= bar - 0.02, (acc, meta)
+    b = sample_labeled_batch(torch.Generator().manual_seed(5), body("cpu"), batch_bodies=2,
+                             points_per_body=1024, label_mode="proximity")
+    with torch.no_grad():
+        want = _field(cpu_net, b.smpl_out, b.betas, b.points)
+        got = _field(net, SMPLOutput(*(t.to(cuda) for t in b.smpl_out)), b.betas.to(cuda),
+                     b.points.to(cuda))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["occupancy_synthetic_signed.npz", "volsdf_synthetic.npz"])
+def test_learned_query_in_chunks_on_the_card(cuda, name, monkeypatch):
+    """The evaluation query in chunks (QUERY_ROWS cut so that 6,000 points
+    take three chunks) against the unchunked query on the card, and the
+    card's chunked query against the CPU's on the same inputs."""
+    from functools import partial
+
+    from egohmr_tpu_torch.collision import neural_occupancy as occ
+    from egohmr_tpu_torch.collision.neural_sdf import SDFNetConfig, sdf_from_raw
+    from egohmr_tpu_torch.smpl import SMPLOutput, lbs, make_synthetic_model
+
+    net, _ = _load_learned(name, cuda)
+    cpu_net, _ = _load_learned(name, "cpu")
+    n, P = 8, 6000
+    g = torch.Generator().manual_seed(9)
+    betas = torch.randn(n, 10, generator=g) * 0.5
+    aa = torch.randn(n, 24, 3, generator=g) * 0.2
+    out = lbs(make_synthetic_model(num_vertices=6890), betas, aa[:, 0], aa[:, 1:].reshape(n, 69))
+    scene = out.vertices[:, :1] + torch.rand(n, P, 3, generator=g) * 1.2 - 0.6
+    head = (partial(sdf_from_raw, net.cfg) if isinstance(net.cfg, SDFNetConfig)
+            else occ.occupancy_from_raw)
+    monkeypatch.setattr(occ, "QUERY_ROWS", n * 24 * 2000)
+    dev_out = SMPLOutput(*(t.to(cuda) for t in out))
+    got = occ.field_in_chunks(net, dev_out, betas.to(cuda), scene.to(cuda), head)
+    with torch.no_grad():
+        whole = _field(net, dev_out, betas.to(cuda), scene.to(cuda))
+    want = occ.field_in_chunks(cpu_net, out, betas, scene, head)
+    torch.testing.assert_close(got, whole, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,V", [(8, 3504), (16, 3504), (8, 6890), (16, 6890)])
+def test_k2_at_the_distillation_label_shapes(cuda, B, V):
+    """K2 at the shapes of the distillation labels, [B, 1024] points against
+    the watertight body's 3,504 vertices or the synthetic body's 6,890, on
+    the label draw itself (half the points in the body's bbox, half near
+    its surface)."""
+    from egohmr_tpu_torch.collision.neural_occupancy import sample_labeled_batch
+    from egohmr_tpu_torch.smpl import make_synthetic_model, make_synthetic_watertight_model
+
+    body = (make_synthetic_watertight_model(device=cuda) if V == 3504
+            else make_synthetic_model(num_vertices=V, device=cuda))
+    b = sample_labeled_batch(torch.Generator(cuda).manual_seed(B), body, batch_bodies=B,
+                             points_per_body=1024, label_mode="proximity")
+    _assert_k2_agrees(b.points.contiguous(), b.smpl_out.vertices.contiguous())

@@ -140,18 +140,32 @@ def test_guided_sample_bodies_f32_matches_jax(setup, monkeypatch, sampler, respa
 
 
 def test_sample_bodies_guidance_options(setup):
-    """The learned collision backends are not ported and say so; the two
-    option clash raises as in JAX; `guidance_refresh_every` runs; the bf16
-    path hands the guidance an f32 condition."""
+    """The learned collision backends guide with their net (the shipped
+    artifacts) and are refused without one; the two option clash raises as
+    in JAX; `guidance_refresh_every` runs; the bf16 path hands the guidance
+    an f32 condition."""
+    from egohmr_tpu_torch.collision.neural_occupancy import load_occupancy
+    from egohmr_tpu_torch.collision.neural_sdf import load_sdfnet
+
     _, (model, tcfg, smpl, stats, sched), batch = setup
     b = to_torch(batch, "cpu")
     run = lambda **kw: sample_bodies(model, tcfg, smpl, stats, sched, b,  # noqa: E731
                                      torch.Generator().manual_seed(0), 1, sampler="ddim", **kw)
-    for backend in ("occupancy", "volsdf"):
-        with pytest.raises(NotImplementedError, match="slice 7"):
+    art = os.path.join(os.path.dirname(__file__), "..", "artifacts")
+    nets = {"occupancy": load_occupancy(os.path.join(art, "occupancy_synthetic_signed.npz")),
+            "volsdf": load_sdfnet(os.path.join(art, "volsdf_synthetic.npz"))}
+    free = run()[0]["pred_pose_6d"]
+    for backend, net in nets.items():
+        with pytest.raises(ValueError, match="needs a learned collision net"):
             run(with_guidance=True, collision_backend=backend)
         with pytest.raises(ValueError, match="sdf-backend knob"):
-            run(with_guidance=True, collision_backend=backend, guidance_refresh_every=2)
+            run(with_guidance=True, collision_backend=backend, guidance_refresh_every=2,
+                occ_net=net)
+        out, cond = run(with_guidance=True, collision_backend=backend, occ_net=net, bf16=True,
+                        guidance=GuidanceConfig(ddim_scale=1e4))
+        assert cond.scene_pcd.dtype == torch.float32 and torch.isfinite(out["pred_pose_6d"]).all()
+        assert not torch.equal(run(with_guidance=True, collision_backend=backend,
+                                   occ_net=net)[0]["pred_pose_6d"], free)
     with pytest.raises(ValueError, match="unknown collision_backend"):
         run(with_guidance=True, collision_backend="coap")
     exact = run(with_guidance=True)[0]["pred_pose_6d"]
@@ -236,7 +250,8 @@ def test_map_batches_in_order(predictor):
 def test_port_never_imports_jax():
     """No file under the package (its `tools/`, `viz/`, `utils/`, `flow/`
     and `preprocess/` included, and stage 1's model, discriminator, training
-    step and CLIs) and not chip_smoke.py imports JAX or egohmr_tpu, and
+    step and CLIs, the learned collision nets, their converters and CLIs)
+    and not chip_smoke.py imports JAX or egohmr_tpu, and
     importing the package's entry points and running the CPU serving path
     leaves JAX unloaded."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -249,7 +264,10 @@ def test_port_never_imports_jax():
             "data/prefetch.py", "utils/logging.py", "utils/profiling.py", "flow/glow.py",
             "models/prohmr.py", "models/discriminator.py", "train/prohmr_loop.py",
             "train/train_prohmr.py", "eval/test_prohmr.py", "preprocess/mesh_io.py",
-            "preprocess/scene.py"} <= walked
+            "preprocess/scene.py", "collision/neural_occupancy.py", "collision/neural_sdf.py",
+            "interop/__init__.py", "interop/coap_convert.py", "interop/volsmpl_convert.py",
+            "eval/test_egohmr_volsmpl.py", "train/distill_occupancy.py",
+            "train/distill_sdf.py"} <= walked
     for f in sources:
         for node in ast.walk(ast.parse(open(f).read())):
             names = ([a.name for a in node.names] if isinstance(node, ast.Import)
