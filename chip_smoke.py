@@ -77,12 +77,27 @@ Phases (any failure exits non-zero):
                distillation CLIs for 1000 steps (the loss falls, agreement
                beats an untrained net's and the all-outside answer's, the
                artifact reloads) and K2 at the label shapes
+ 10. parallel — data parallelism at full width: (a) the stage-2 DP step
+               on NCCL at world 1 equal to the plain step bit for bit, f32
+               and bf16-mixed; (b) two ranks sharing the card over gloo:
+               the stage-2 step at batch 16 and the stage-1 G+D step at
+               batch 32 against their 1-way steps, the replicas equal after
+               more steps, a collision step's K2 held to its plain version,
+               the point-sharded encoder against the whole cloud's; (c) the
+               evaluation CLI at two ranks against one, f32 plain and at its
+               defaults, every K1 and K2 call of both held to its plain
+               version on its own inputs, and a shard's guided gradient
+               against the whole batch's; (d) `Predictor` over two replicas
+               on the card against one device, each K1 call held likewise;
+               the step's, request's and gradient all-reduce's times. Two
+               ranks share one card: no scaling figure
 Before the last line come a JSON object with one entry per kernel and the
 card's name and power limit; the last line is {"ok": true, "device":
 {...}}. Nothing runs without a GPU.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -192,16 +207,14 @@ def phase_kernel_k1(cfg) -> dict:
         got = k1.pointnet_fused_feature(enc, pts)
         torch.cuda.synchronize()
         ref = k1.pointnet_fused_reference(enc, pts)
-        err = (got - ref).abs()
-        strict = (err <= 5e-5 + 5e-3 * ref.abs()).float().mean().item()
-        bar = 2.0 ** -7 * ref.abs().max().item()
-        cos = torch.nn.functional.cosine_similarity(got, ref, dim=-1).min().item()
-        log("kernel", f"K1 vs plain at B={B}, P={P}: max_abs_err {err.max().item():.3e} "
+        err, bar, cos, ok = k1_agrees(got, ref)
+        strict = ((got - ref).abs() <= 5e-5 + 5e-3 * ref.abs()).float().mean().item()
+        log("kernel", f"K1 vs plain at B={B}, P={P}: max_abs_err {err:.3e} "
                       f"(bar {bar:.3e}), {strict * 100:.2f}% of elements within "
                       f"rtol 5e-3/atol 5e-5, min cosine {cos:.7f}")
-        if not torch.isfinite(got).all() or err.max().item() > bar or cos < 0.9999:
+        if not ok:
             fail(f"K1 disagrees with its plain version at B={B}, P={P}")
-        max_err = max(max_err, err.max().item())
+        max_err = max(max_err, err)
     log("kernel", "bar: 2^-7 x max|plain| (two bf16 ulps of the largest pooled "
                   "value): the tensor cores sum in another order than cuBLAS's "
                   "f32 GEMM, a few bf16 activations round the other way, and "
@@ -253,6 +266,16 @@ def phase_kernel_k1(cfg) -> dict:
             "ms_b16": small[16], "ms_b8": small[8], "by_kernel_ms": parts}
 
 
+def k1_agrees(got, ref):
+    """K1's pooled features against the plain version's: the largest
+    error, its bar (2^-7 x max|plain|, two bf16 ulps of the largest pooled
+    value), the least cosine per cloud (>= 0.9999), and whether all hold."""
+    err = (got - ref).abs().max().item()
+    bar = 2.0 ** -7 * ref.abs().max().item()
+    cos = torch.nn.functional.cosine_similarity(got, ref, dim=-1).min().item()
+    return err, bar, cos, bool(torch.isfinite(got).all()) and err <= bar and cos >= 0.9999
+
+
 def points_near_body(B: int, P: int, V: int, seed: int):
     """A seeded body-sized vertex cloud and points scattered around it."""
     g = torch.Generator().manual_seed(seed)
@@ -276,6 +299,29 @@ def k2_agrees(pts, verts, got, ref):
     in_range = 0 <= int(got.min()) and int(got.max()) < verts.shape[1]
     ok = bool((gap <= 1e-6 + 1e-5 * d_ref).all()) and in_range and got.dtype == torch.int64
     return int((got != ref).sum()), gap.max().item(), ok
+
+
+def k2_score_gap(pts, verts, got, ref):
+    """Where K2's pick and the plain version's differ by more than
+    `k2_agrees` allows: the largest ratio of the gap between the two picks'
+    scores |v|^2 - 2 p.v (the quantity both argmin, here in f64) to what the
+    f32 evaluation of those scores can err, 8 u (|v|^2 + 2 sum |p_i v_i|)
+    for each pick (u = 2^-24). At most 1: the kernel's pick is an argmin of
+    the f32 score, a near-tie that the other sum order resolves the other
+    way. Far from the origin (bodies in the camera frame, metres away) that
+    rounding exceeds `k2_agrees`'s fixed distance bar near a vertex.
+    Returns (that ratio, the largest f64 distance of the kernel's pick less
+    the plain version's)."""
+    p = pts.double()
+
+    def score(idx):
+        v = torch.gather(verts, 1, idx[..., None].expand(-1, -1, 3)).double()
+        sq = (v * v).sum(-1)
+        return (sq - 2.0 * (p * v).sum(-1), 8 * 2.0 ** -24 * (sq + 2.0 * (p * v).abs().sum(-1)),
+                torch.linalg.norm(p - v, dim=-1))
+
+    (s_got, e_got, d_got), (s_ref, e_ref, d_ref) = score(got), score(ref)
+    return float(((s_got - s_ref) / (e_got + e_ref)).max()), float((d_got - d_ref).max())
 
 
 def phase_kernel_k2() -> dict:
@@ -792,7 +838,7 @@ def breakdown(name: str, pred, batch, n_guided: int) -> None:
                                          make_guidance_fn, model_outputs)
     from egohmr_tpu_torch.smpl import lbs, vertex_normals
 
-    model, cfg, smpl, stats = pred._model, pred.cfg, pred._smpl, pred._stats
+    (model, smpl, stats, _), cfg = pred._replicas[0], pred.cfg
     dev_batch = to_torch(batch, pred.device)
     dev_batch["img"] = dev_batch["img"].to(torch.bfloat16)
     B = dev_batch["img"].shape[0]
@@ -2096,6 +2142,751 @@ def phase_learned(cfg) -> dict:
             "k2_label_shapes": distilled["k2_label_shapes"]}
 
 
+# ---------------------------------------------------------------- phase 10
+DP_WORLD = 2   # ranks of the spawned runs, both on the one card
+DP_B = 16      # the stage-2 step's global batch (8 a rank)
+DP_S1_B = 32   # the stage-1 G+D step's (16 a rank)
+# JAX's own N-vs-1 bars (`tests/test_train_infra.py`): the loss, and the
+# parameters after one SGD step at lr 1e-2 from the same start
+SGD_LR = 1e-2
+DP_BARS = {"f32": dict(loss=1e-4, rtol=1e-4, atol=1e-6)}
+N_GRAD = "52.9 M f32 parameters, 202 MiB"
+
+
+def dp_compare(what, got, want, floor, bars) -> str:
+    """Two runs' (loss, gradients, BatchNorm statistics, start) of one step
+    from the same start: `got` the N-way run, `want` the 1-way one, `floor`
+    the 1-way one again on the batch in reverse row order, the same sums in
+    another order. The loss is held at bars["loss"]. The JAX package holds
+    its N-vs-1 step elementwise, on the parameters after one SGD step (p -
+    1e-2 g) at bars["rtol"] and bars["atol"]; at full width and the
+    training init the f32 summation order alone moves far more elements
+    than that (the reversed run shows how many), so each group (the
+    ResNet's gradient, the other gradients, the running statistics) is
+    held by its relative distance from the 1-way run: at most four times
+    the reversed run's. Fails otherwise; returns a summary line."""
+    (loss_a, grads_a, bn_a, p0), (loss_b, grads_b, bn_b, _), (_, grads_f, bn_f, _) = \
+        got, want, floor
+    rel = abs(loss_a - loss_b) / abs(loss_b)
+    groups = {"the ResNet's gradient": [k for k in grads_b if k.startswith("backbone.")],
+              "the other gradients": [k for k in grads_b if not k.startswith("backbone.")],
+              "the running statistics": list(bn_b)}
+
+    def beyond_jax_bar(grads, bn):
+        n = 0
+        for k, g in grads_b.items():
+            gap = (SGD_LR * (grads[k] - g)).abs() - bars["rtol"] * (p0[k] - SGD_LR * g).abs()
+            n += int((gap > bars["atol"]).sum())
+        for k, v in bn_b.items():
+            n += int(((bn[k] - v).abs() - bars["rtol"] * v.abs() > bars["atol"]).sum())
+        return n
+
+    def distance(this, ref, keys):
+        d = torch.cat([(this[k] - ref[k]).double().reshape(-1) for k in keys])
+        return float(d.norm() / torch.cat([ref[k].double().reshape(-1) for k in keys]).norm())
+
+    parts, ok = [], rel <= bars["loss"]
+    for name, keys in groups.items():
+        a_all, f_all = {**grads_a, **bn_a}, {**grads_f, **bn_f}
+        ref = {**grads_b, **bn_b}
+        d_got, d_floor = distance(a_all, ref, keys), distance(f_all, ref, keys)
+        ok &= d_got <= 4 * d_floor + 1e-7
+        parts.append(f"{name} {d_got:.3e} (reversed {d_floor:.3e})")
+    line = (f"{what}: loss {loss_a:.6f} vs {loss_b:.6f} (rel {rel:.2e}, bar {bars['loss']:.0e}); "
+            f"relative distance from the 1-way run, bar 4x the reversed 1-way run's: "
+            + ", ".join(parts) + f"; elements beyond JAX's SGD-step bar (rtol "
+            f"{bars['rtol']:.0e}, atol {bars['atol']:.0e}): {beyond_jax_bar(grads_a, bn_a)}, "
+            f"the reversed run {beyond_jax_bar(grads_f, bn_f)}")
+    if not ok:
+        fail(line)
+    return line
+
+
+def dp_compare_mixed(what, got, want, f32) -> str:
+    """The bf16-mixed step: `got` the N-way run, `want` the 1-way one, `f32`
+    the 1-way f32 step from the same start. At full width the bf16 rounding
+    of the two runs' convolutions (other algorithms at batch 8 and 16)
+    parts them far beyond any elementwise bar, as bf16 parts from f32
+    (phase 7's gradient cosine, 0.07), so each is taken as a bf16 estimate
+    of the f32 step and the N-way run is held to the f32 step as closely as
+    the 1-way one is: its loss within twice the 1-way run's gap (plus 1e-3
+    of the loss), its gradient's cosine to the f32 gradient, whole and
+    outside the ResNet, at least the 1-way run's less phase 7's margins
+    (0.03, 0.01), and its running statistics' relative distance from the
+    f32 run's at most twice the 1-way run's. Fails otherwise."""
+    (loss_a, grads_a, bn_a, _), (loss_b, grads_b, bn_b, _), (loss_f, grads_f, bn_f, _) = \
+        got, want, f32
+    gap_a, gap_b = abs(loss_a - loss_f), abs(loss_b - loss_f)
+    ok = gap_a <= 2 * gap_b + 1e-3 * abs(loss_f)
+
+    def cosine(grads, keys):
+        a = torch.cat([grads[k].double().reshape(-1) for k in keys])
+        b = torch.cat([grads_f[k].double().reshape(-1) for k in keys])
+        return float(a @ b / (a.norm() * b.norm()))
+
+    def distance(bn):
+        d = torch.cat([(bn[k] - bn_f[k]).double().reshape(-1) for k in bn_f])
+        return float(d.norm() / torch.cat([v.double().reshape(-1) for v in bn_f.values()]).norm())
+
+    parts = []
+    for name, keys, margin in (("whole", list(grads_f), 0.03),
+                               ("outside the ResNet",
+                                [k for k in grads_f if not k.startswith("backbone.")], 0.01)):
+        c_a, c_b = cosine(grads_a, keys), cosine(grads_b, keys)
+        ok &= c_a >= c_b - margin
+        parts.append(f"{name} {c_a:.4f} (1-way {c_b:.4f}, margin {margin})")
+    d_a, d_b = distance(bn_a), distance(bn_b)
+    ok &= d_a <= 2 * d_b + 1e-7
+    line = (f"{what}: loss {loss_a:.6f}, 1-way {loss_b:.6f}, f32 {loss_f:.6f}; the gradient's "
+            f"cosine to the f32 step's: " + ", ".join(parts) + f"; the running statistics "
+            f"{d_a:.3e} from the f32 run's (1-way {d_b:.3e}, bar 2x)")
+    if not ok:
+        fail(line)
+    return line
+
+
+def flip_rows(tree):
+    """A batch tree in reverse row order."""
+    if isinstance(tree, dict):
+        return {k: flip_rows(v) for k, v in tree.items()}
+    return tree.flip(0)
+
+
+def s2_snapshot(model, terms, p0) -> tuple:
+    from egohmr_tpu_torch.train import trainable_tensors
+
+    grads = {k: t.grad.detach().clone() for k, t in trainable_tensors(model).items()}
+    bn = {k: v.detach().clone() for k, v in model.state_dict().items()
+          if k.endswith(("running_mean", "running_var"))}
+    return float(terms["loss"]), grads, bn, p0
+
+
+def s2_fresh(cfg, init, dev, dp=None, **kw):
+    """A stage-2 model from `init`, its AdamW and step on `dev`, and its
+    trained tensors' starting values."""
+    from egohmr_tpu_torch.diffusion import make_schedule
+    from egohmr_tpu_torch.models import BodyRepStats, EgoHMR, LossWeights
+    from egohmr_tpu_torch.smpl import make_synthetic_model
+    from egohmr_tpu_torch.train import (TrainConfig, make_optimizer, make_train_step,
+                                        trainable_tensors)
+
+    smpl = make_synthetic_model(num_vertices=V_FULL, device=dev)
+    stats = BodyRepStats(torch.zeros(144, device=dev), torch.ones(144, device=dev))
+    model = EgoHMR(cfg)
+    model.load_state_dict(init)
+    model = model.to(dev, memory_format=torch.channels_last)
+    tcfg = TrainConfig(**kw)
+    opt = make_optimizer(model, tcfg)
+    step = make_train_step(cfg, tcfg, LossWeights(), make_schedule(50, "cosine", "").to(dev),
+                           stats, smpl, smpl, smpl, opt, dp=dp)
+    p0 = {k: t.detach().clone() for k, t in trainable_tensors(model).items()}
+    return model, step, p0
+
+
+def dp_inputs(cfg, dev):
+    """The stage-2 step's global batch and draws."""
+    from egohmr_tpu_torch.data import synthetic_batch
+
+    batch = synthetic_batch(DP_B, num_scene_points=P_FULL, seed=30, device=dev)
+    draws = dict(zip(("t", "noise", "drop"), (torch.from_numpy(a).to(dev) for a in
+                                              train_draws(DP_B, cfg.cond_mask_prob))))
+    return batch, draws
+
+
+def step_ms(step, model, batch, reps=5, **kw) -> float:
+    """Median CUDA-event ms of `reps` steps (after one)."""
+    step(model, batch, **kw)
+    times = []
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        step(model, batch, **kw)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def phase_parallel_nccl(cfg, init, tmp) -> dict:
+    """(a) The stage-2 DP step with NCCL at world 1, in this process,
+    against the plain step on the same draws: loss, gradients and
+    BatchNorm statistics bit for bit (a world-1 all-reduce is the
+    identity), f32 (TF32 off) and bf16-mixed; both steps' ms."""
+    import torch.distributed as dist
+
+    from egohmr_tpu_torch.parallel import init_data_parallel
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl_store", rank=0, world_size=1)
+    dp = init_data_parallel("cuda")
+    if dp is None or dp.size != 1 or dist.get_backend() != "nccl":
+        fail(f"NCCL at world 1: record {dp}")
+    batch, draws = dp_inputs(cfg, dev)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the same algorithms in both runs
+    out = {}
+    try:
+        for name, mp in (("f32", False), ("bf16-mixed", True)):
+            runs = {}
+            for tag, rec in (("plain", None), ("plain again", None), ("dp", dp)):
+                model, step, p0 = s2_fresh(cfg, init, dev, dp=rec, mixed_precision=mp)
+                runs[tag] = s2_snapshot(model, step(model, batch, **draws), p0)
+                if tag != "plain again":
+                    out[f"{name} {tag} ms"] = step_ms(step, model, batch, **draws)
+                del model, step
+            for tag in ("plain again", "dp"):
+                a, b = runs[tag], runs["plain"]
+                same = (a[0] == b[0] and all(torch.equal(a[1][k], g) for k, g in b[1].items())
+                        and all(torch.equal(a[2][k], v) for k, v in b[2].items()))
+                log("parallel", f"(a) {name}, batch {DP_B}: {tag} step against the plain one, "
+                                f"loss {a[0]:.9f} vs {b[0]:.9f}, gradients and running "
+                                f"statistics {'equal bit for bit' if same else 'DIFFER'}")
+                if not same:
+                    fail(f"(a) NCCL world 1, {name}: the {tag} step is not the plain step "
+                         "bit for bit")
+            log("parallel", f"(a) {name} step, median CUDA-event ms of 5: plain "
+                            f"{out[f'{name} plain ms']:.2f}, through the DP code at world 1 "
+                            f"{out[f'{name} dp ms']:.2f} (62 BatchNorm all-reduces forward, 62 "
+                            f"backward, one gradient all-reduce)")
+        flat = torch.randn(52_900_000, device=dev)
+        out["nccl world-1 all-reduce ms"] = time_ms(lambda: dist.all_reduce(flat), reps=5)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        dist.destroy_process_group()
+    return out
+
+
+def dp_rank_main(rank, tmp, cfg, cfg1):
+    """One of the two ranks of (b) and (c), both on the one card, over
+    gloo: its results go to `<tmp>/rank<r>.json`."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(DP_WORLD), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(DP_WORLD))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+
+    from egohmr_tpu_torch.parallel import init_data_parallel
+
+    dp = init_data_parallel("cuda", init_method=f"file://{tmp}/gloo_store")
+    if dist.get_backend() != "gloo" or dp.device != torch.device("cuda", 0):
+        fail(f"two ranks on one card: backend {dist.get_backend()}, device {dp.device}")
+    res = {"rank": rank}
+    try:
+        res.update(dp_rank_steps(dp, tmp, cfg, cfg1))
+        res.update(dp_rank_eval(dp, tmp))
+    finally:
+        with open(f"{tmp}/rank{rank}.json", "w") as f:
+            json.dump(res, f)
+        dist.destroy_process_group()
+
+
+def dp_flat_state(model) -> torch.Tensor:
+    return torch.cat([v.detach().float().reshape(-1) for v in model.state_dict().values()
+                      if v.is_floating_point()])
+
+
+def dp_rank_steps(dp, tmp, cfg, cfg1) -> dict:
+    """(b): the stage-2 step at batch 16 against the 1-way step (rank 0),
+    f32 and bf16-mixed, then three steps with the generator's draws and
+    every rank's state against rank 0's; one step with the collision loss
+    (K2 once a rank, held to its plain version); the stage-1 G+D step at
+    batch 32 against the 1-way one; the point-sharded encoder on 20,000
+    points; the gradient all-reduce's ms."""
+    import torch.distributed as dist
+
+    from egohmr_tpu_torch.collision import knn as k2
+    from egohmr_tpu_torch.collision import sdf
+    from egohmr_tpu_torch.data import synthetic_batch, to_torch
+    from egohmr_tpu_torch.models import (Discriminator, ProHMR, ProHMRLossWeights,
+                                         init_discriminator_)
+    from egohmr_tpu_torch.models import prohmr
+    from egohmr_tpu_torch.nn import pointnet_forward, pointnet_forward_point_sharded
+    from egohmr_tpu_torch.parallel import gather_rows, rows, shard_batch
+    from egohmr_tpu_torch.smpl import make_synthetic_model
+    from egohmr_tpu_torch.train.prohmr_loop import make_optimizers, make_prohmr_train_step
+
+    dev, rank = dp.device, dp.rank
+    res, lines = {}, []
+    init = torch.load(f"{tmp}/init.pt", weights_only=True)
+    batch, draws = dp_inputs(cfg, dev)
+    mine = rows(dp, DP_B)
+    local, local_draws = shard_batch(dp, batch), {k: v[mine] for k, v in draws.items()}
+    for name, mp in (("f32", False), ("bf16-mixed", True)):
+        model, step, p0 = s2_fresh(cfg, init, dev, dp=dp, mixed_precision=mp)
+        got = s2_snapshot(model, step(model, local, **local_draws), p0)
+        if rank == 0:
+            ref, ref_step, _ = s2_fresh(cfg, init, dev, mixed_precision=mp)
+            want = s2_snapshot(ref, ref_step(ref, batch, **draws), p0)
+            res[f"{name} 1-way ms"] = step_ms(ref_step, ref, batch, **draws)
+            what = f"(b) {name} step, 2 ranks x {DP_B // DP_WORLD} against 1 x {DP_B}"
+            if mp:
+                lines.append(dp_compare_mixed(what, got, want, f32_want))
+                del f32_want
+            else:
+                ref, ref_step, _ = s2_fresh(cfg, init, dev, mixed_precision=mp)
+                floor = s2_snapshot(ref, ref_step(ref, flip_rows(batch), **flip_rows(draws)), p0)
+                lines.append(dp_compare(what, got, want, floor, DP_BARS[name]))
+                f32_want = want
+                del floor
+            del ref, ref_step, want
+        dist.barrier()
+        # three steps more with the generator's draws, each made for the
+        # whole batch on both ranks; their time; then the replicas
+        gen = torch.Generator(device=dev).manual_seed(4)
+        res[f"{name} 2-rank ms"] = step_ms(step, model, local, reps=2, generator=gen)
+        flat = dp_flat_state(model)
+        both = gather_rows(dp, flat[None])
+        res[f"{name} replicas equal"] = bool(torch.equal(both[0], both[1]))
+        res[f"{name} replicas max gap"] = float((both[0] - both[1]).abs().max())
+        del model, step, got, both, flat
+        torch.cuda.empty_cache()
+    # one step with the collision loss: K2 once on each rank, at [8, 4096] x 6890
+    model, step, _ = s2_fresh(cfg, init, dev, dp=dp, use_collision_loss=True)
+    seen, nearest = [], sdf.nearest_vertex_idx
+
+    def spy(points, verts, **kw):
+        idx = nearest(points, verts, **kw)
+        seen.append((points.clone(), verts.clone(), idx.clone()))
+        return idx
+
+    sdf.nearest_vertex_idx = spy
+    k2.launches = 0  # main path starts: count launches from here
+    try:
+        terms = step(model, local, torch.Generator(device=dev).manual_seed(6))
+    finally:
+        sdf.nearest_vertex_idx = nearest
+    res["k2_collision"] = k2.launches  # main path ends
+    pts, verts, got_idx = seen[0]
+    differ, err, ok = k2_agrees(pts, verts, got_idx, k2.nearest_vertex_idx_reference(pts, verts))
+    res["k2_collision_shape"] = [int(pts.shape[0]), int(pts.shape[1]), int(verts.shape[1])]
+    lines.append(f"(b) collision step on rank {rank}: K2 launches {res['k2_collision']}, "
+                 f"shape {res['k2_collision_shape']}, {differ} indices differ from the plain "
+                 f"version, max |d_kernel - d_plain| {err:.3e}; loss_coap_penetration "
+                 f"{float(terms['loss_coap_penetration']):.6e}")
+    if (res["k2_collision"] != 1 or not ok or len(seen) != 1
+            or res["k2_collision_shape"] != [DP_B // DP_WORLD, 4096, V_FULL]):
+        fail(lines[-1])
+    # the gradient all-reduce alone, gloo on CUDA tensors
+    flat = torch.randn(52_900_000, device=dev)
+    t = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(flat)
+        torch.cuda.synchronize()
+        t.append((time.perf_counter() - t0) * 1e3)
+    res["gloo all-reduce ms"] = float(np.median(t))
+    # the point-sharded encoder: 10,000 + 10,000 of 20,000 points
+    pts = synthetic_batch(8, num_scene_points=P_FULL, seed=40, device=dev)["scene_pcd_verts_full"]
+    enc = init_random_s2(cfg).scene_enc.to(dev).eval()  # fc_1 is 0 in the training init
+    with torch.no_grad():
+        sharded = pointnet_forward_point_sharded(enc, pts[:, rows(dp, P_FULL)].contiguous(), dp)
+        whole = pointnet_forward(enc, pts)
+    enc_ok = torch.allclose(sharded, whole, rtol=1e-5, atol=1e-6)
+    lines.append(f"(b) point-sharded encoder on rank {rank}, 8 clouds of {P_FULL} points, "
+                 f"{P_FULL // DP_WORLD} a rank: max |sharded - whole| "
+                 f"{float((sharded - whole).abs().max()):.3e} (rtol 1e-5, atol 1e-6)")
+    if not enc_ok:
+        fail(lines[-1])
+    del model, step, seen, flat
+    torch.cuda.empty_cache()
+    # the stage-1 G+D step at batch 32, f32, against the 1-way step
+    smpl = make_synthetic_model(num_vertices=V_FULL, device=dev)
+    tb = synthetic_batch(DP_S1_B, num_scene_points=P_FULL, seed=50, device=dev)
+    rng = np.random.RandomState(0)
+    mocap = to_torch({"body_pose": rng.randn(DP_S1_B, 69).astype(np.float32) * 0.3,
+                      "betas": rng.randn(DP_S1_B, 10).astype(np.float32) * 0.5}, dev)
+
+    def s1_fresh(rec):
+        model = prohmr.init_random_(ProHMR(cfg1), seed=0, training=True)
+        model = model.to(dev, memory_format=torch.channels_last)
+        disc = init_discriminator_(Discriminator(), seed=10).to(dev)
+        prohmr.initialize(model, cfg1, tb)  # the ActNorms from the whole batch
+        opt, dopt = make_optimizers(model, disc)
+        step = make_prohmr_train_step(cfg1, ProHMRLossWeights(), smpl, smpl, smpl, opt, dopt,
+                                      dp=rec)
+        p0 = {k: t.detach().clone() for k, t in model.named_parameters()}
+        return model, disc, step, p0
+
+    def s1_snapshot(model, terms, p0):
+        grads = {k: t.grad.detach().clone() for k, t in model.named_parameters()}
+        bn = {k: v.detach().clone() for k, v in model.state_dict().items()
+              if k.endswith(("running_mean", "running_var"))}
+        return float(terms["loss"]), grads, bn, p0
+
+    model, disc, step, p0 = s1_fresh(dp)
+    got = s1_snapshot(model, step(model, disc, shard_batch(dp, tb), shard_batch(dp, mocap),
+                                  torch.Generator(device=dev).manual_seed(7)), p0)
+    del model, disc, step
+    if rank == 0:
+        model, disc, step, _ = s1_fresh(None)
+        want = s1_snapshot(model, step(model, disc, tb, mocap,
+                                       torch.Generator(device=dev).manual_seed(7)), p0)
+        # the floor: the draws the 1-way step made, handed in in reverse order
+        g = torch.Generator(device=dev).manual_seed(7)
+        z = torch.zeros(DP_S1_B, cfg1.num_train_samples, cfg1.flow_dim, device=dev)
+        z[:, 1:] = torch.randn((DP_S1_B, cfg1.num_train_samples - 1, cfg1.flow_dim),
+                               generator=g, device=dev)
+        nll = torch.randn((DP_S1_B, cfg1.flow_dim), generator=g, device=dev)
+        model, disc, step, _ = s1_fresh(None)
+        floor = s1_snapshot(model, step(model, disc, flip_rows(tb), flip_rows(mocap),
+                                        z=z.flip(0), nll_noise=nll.flip(0)), p0)
+        lines.append(dp_compare(f"(b) stage-1 G+D step, f32, 2 ranks x {DP_S1_B // DP_WORLD} "
+                                f"against 1 x {DP_S1_B}", got, want, floor, DP_BARS["f32"]))
+        del model, disc, step, want, floor
+    del got
+    torch.cuda.empty_cache()
+    dist.barrier()
+    res["lines"] = lines
+    return res
+
+
+@contextlib.contextmanager
+def kernel_calls():
+    """Every K1 and K2 call made inside, with its inputs and its output
+    ({"k1": [(encoder, points, feature)], "k2": [(points, verts, idx)]}), to
+    hold each against its plain version after the run."""
+    from egohmr_tpu_torch.collision import sdf
+    from egohmr_tpu_torch.nn import pointnet_fused as k1
+
+    seen = {"k1": [], "k2": []}
+    feature, nearest = k1.pointnet_fused_feature, sdf.nearest_vertex_idx
+
+    def k1_spy(enc, points):
+        out = feature(enc, points)
+        seen["k1"].append((enc, points.detach().clone(), out.clone()))
+        return out
+
+    def k2_spy(points, verts, **kw):
+        idx = nearest(points, verts, **kw)
+        seen["k2"].append((points.detach().clone(), verts.detach().clone(), idx.clone()))
+        return idx
+
+    k1.pointnet_fused_feature, sdf.nearest_vertex_idx = k1_spy, k2_spy
+    try:
+        yield seen
+    finally:
+        k1.pointnet_fused_feature, sdf.nearest_vertex_idx = feature, nearest
+
+
+def hold_kernel_calls(seen, what: str) -> str:
+    """Each recorded call's output against the plain version on the same
+    inputs, K1 at phase 3's bar and K2 by `k2_agrees`, or, where an index
+    misses that distance bar, by `k2_score_gap` (a near-tie within the
+    f32 score's rounding); fails on the first that disagrees. One line: the
+    shapes, the calls and the worst gaps."""
+    from egohmr_tpu_torch.collision import knn as k2
+    from egohmr_tpu_torch.nn import pointnet_fused as k1
+
+    k1_err, k1_cos, k2_differ, k2_err = 0.0, 1.0, 0, 0.0
+    k1_shapes, k2_shapes = set(), set()
+    for enc, pts, got in seen["k1"]:
+        err, bar, cos, ok = k1_agrees(got, k1.pointnet_fused_reference(enc, pts))
+        if not ok:
+            fail(f"{what}: K1 disagrees with its plain version on [{pts.shape[0]}, "
+                 f"{pts.shape[1]}]: max_abs_err {err:.3e} (bar {bar:.3e}), min cosine {cos:.7f}")
+        k1_err, k1_cos = max(k1_err, err), min(k1_cos, cos)
+        k1_shapes.add(tuple(pts.shape[:2]))
+    ties, tie_ratio, tie_d64 = 0, -float("inf"), -float("inf")
+    for pts, verts, got in seen["k2"]:
+        ref = k2.nearest_vertex_idx_reference(pts, verts)
+        differ, err, ok = k2_agrees(pts, verts, got, ref)
+        if not ok:  # within the f32 rounding of the score both argmin?
+            in_range = (got.dtype == torch.int64 and 0 <= int(got.min())
+                        and int(got.max()) < verts.shape[1])
+            ratio, d64 = k2_score_gap(pts, verts, got, ref)
+            ties, tie_ratio, tie_d64 = ties + 1, max(tie_ratio, ratio), max(tie_d64, d64)
+            if not (in_range and ratio <= 1.0):
+                fail(f"{what}: K2 disagrees with its plain version on [{pts.shape[0]}, "
+                     f"{pts.shape[1]}] x {verts.shape[1]}: {differ} indices differ, max "
+                     f"|d_kernel - d_plain| {err:.3e}, score gap {ratio:.3f} x its f32 "
+                     "rounding bound")
+        k2_differ, k2_err = k2_differ + differ, max(k2_err, err)
+        k2_shapes.add((pts.shape[0], pts.shape[1], verts.shape[1]))
+    return (f"{what}: every kernel call against its plain version on its inputs: K1 "
+            f"{len(seen['k1'])} calls at {sorted(k1_shapes)}, max_abs_err {k1_err:.3e}, "
+            f"min cosine {k1_cos:.7f}; K2 {len(seen['k2'])} calls at {sorted(k2_shapes)}, "
+            f"{k2_differ} indices differ, max |d_kernel - d_plain| {k2_err:.3e}; {ties} "
+            f"calls beyond k2_agrees' distance bar" + (
+                f", their f64 score gaps at most {tie_ratio:.3e} x the f32 rounding bound "
+                f"(<= 0: the kernel's pick scores no worse), f64 distances at most "
+                f"{tie_d64:.3e} beyond the plain pick's" if ties else ""))
+
+
+def dp_rank_eval(dp, tmp) -> dict:
+    """(c) on this rank: the evaluation CLI on the process group of (b),
+    which its `init_data_parallel` takes as it is, f32 plain and at its
+    defaults (bf16, K1, guided DDPM-50), with K1's and K2's launches, each
+    call held against its plain version on the rank's own inputs."""
+    from egohmr_tpu_torch.collision import knn as k2
+    from egohmr_tpu_torch.eval import test_egohmr as cli
+    from egohmr_tpu_torch.nn import pointnet_fused as k1
+
+    cli.synthetic_batch = edge_batch
+    res = {"eval lines": []}
+    for name, extra in DP_EVAL_RUNS.items():
+        with kernel_calls() as seen:
+            k1.launches = k2.launches = 0  # main path starts: count launches from here
+            t = time.perf_counter()
+            res[f"eval {name}"] = cli.main(EVAL_ARGS + extra)
+            torch.cuda.synchronize()
+            res[f"eval {name} s"] = time.perf_counter() - t
+            res[f"eval {name} k1"], res[f"eval {name} k2"] = k1.launches, k2.launches  # ends
+        if (len(seen["k1"]), len(seen["k2"])) != (k1.launches, k2.launches):
+            fail(f"(c) eval {name} on rank {dp.rank}: {len(seen['k1'])} K1 and "
+                 f"{len(seen['k2'])} K2 calls recorded for {k1.launches} and {k2.launches} "
+                 "launches")
+        res["eval lines"].append(hold_kernel_calls(seen, f"(c) eval {name}, rank {dp.rank}"))
+        del seen
+    return res
+
+
+# the evaluation CLI's runs at two ranks and at one: f32 plain, and its
+# defaults (bf16, K1, guided DDPM-50), each over EVAL_ARGS' 8 images x 5
+# samples x 2 batches
+DP_EVAL_RUNS = {"f32 plain": F32_PLAIN, "defaults": []}
+DP_EVAL_GUIDED_STEPS = 11
+
+
+def dp_guided_gradient(cfg) -> str:
+    """Item of (c): the guided gradient of one rank's shard, its batch mean
+    taken over the whole batch, against the same rows of the whole batch's
+    gradient (rtol 1e-4); the shard's own mean would be twice as strong."""
+    from egohmr_tpu_torch.eval.pipeline import tile_condition
+    from egohmr_tpu_torch.models import BodyRepStats, compute_condition, make_guidance_fn
+    from egohmr_tpu_torch.smpl import make_synthetic_model
+
+    dev = torch.device("cuda")
+    B, S = 8, 5
+    model = init_random_s2(cfg).to(dev, memory_format=torch.channels_last).eval()
+    smpl = make_synthetic_model(num_vertices=V_FULL, device=dev)
+    stats = BodyRepStats(torch.zeros(144, device=dev), torch.ones(144, device=dev))
+    batch = edge_batch(B, seed=100, device=dev)
+    with torch.no_grad():
+        cond = tile_condition(compute_condition(model, cfg, batch), S)
+    x = torch.randn(B * S, 144, generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+    t = torch.zeros(B * S, dtype=torch.int64, device=dev)
+    whole = make_guidance_fn(model, cfg, smpl, cond, stats)(x, t)
+    half = slice(0, B * S // 2)
+    shard_cond = type(cond)(*(v[half] for v in cond))
+    shard = make_guidance_fn(model, cfg, smpl, shard_cond, stats, global_rows=B * S)(x[half], t[half])
+    own = make_guidance_fn(model, cfg, smpl, shard_cond, stats)(x[half], t[half])
+    ok = torch.allclose(shard, whole[half], rtol=1e-4, atol=1e-6 * float(whole.abs().max()))
+    moving = int((whole[half].abs().amax(-1) > 0).sum())
+    line = (f"(c) guided gradient of rank 0's {B * S // 2} of {B * S} bodies, mean over the "
+            f"whole batch, against the same rows of the whole batch's: max |diff| "
+            f"{float((shard - whole[half]).abs().max()):.3e} of max {float(whole.abs().max()):.3e} "
+            f"(rtol 1e-4), {moving} bodies with a gradient; the shard's own mean: "
+            f"{float(own.abs().max() / whole[half].abs().max().clamp_min(1e-30)):.3f} x")
+    if not ok or moving == 0:
+        fail(line)
+    return line
+
+
+def init_random_s2(cfg):
+    from egohmr_tpu_torch.models import EgoHMR, init_random_
+
+    return init_random_(EgoHMR(cfg), seed=0)
+
+
+def dp_predictor(cfg) -> dict:
+    """(d) `Predictor([cuda:0, cuda:0])` against the one-device `Predictor`
+    at batch 64, unguided DDIM-5, on the same seed: f32 plain within rtol
+    2e-4, atol 2e-4, bf16 + K1 within a mean abs of 0.05, K1 twice a
+    request, each call held against its plain version on the replica's
+    clouds; request ms."""
+    import copy
+
+    from egohmr_tpu_torch.data import synthetic_batch
+    from egohmr_tpu_torch.diffusion import make_schedule
+    from egohmr_tpu_torch.models import BodyRepStats
+    from egohmr_tpu_torch.nn import pointnet_fused as k1
+    from egohmr_tpu_torch.serving import Predictor
+    from egohmr_tpu_torch.smpl import make_synthetic_model
+
+    dev = torch.device("cuda", 0)
+    model = init_random_s2(cfg).eval()
+    smpl = make_synthetic_model(num_vertices=V_FULL)
+    stats = BodyRepStats(torch.zeros(144), torch.ones(144))
+    schedule = make_schedule(50, "cosine", "ddim5")
+    batch = synthetic_batch(B_TIME, num_scene_points=P_FULL, seed=10)
+    res, lines = {"k1": 0}, []
+    for name, kw in (("f32 plain", dict(bf16=False, pointnet_impl="xla")),
+                     ("bf16 + K1", dict(bf16=True, pointnet_impl="fused"))):
+        outs = {}
+        for tag, device in (("1 device", dev), ("2 replicas", [dev, dev])):
+            pred = Predictor(copy.deepcopy(model), cfg, smpl, stats, schedule, device=device,
+                             batch_size=B_TIME, **kw)
+            pred(batch, seed=1)  # warm-up
+            with kernel_calls() as seen:
+                k1.launches = 0  # main path starts: count launches from here
+                times = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    outs[tag] = pred(batch, seed=1)
+                    times.append((time.perf_counter() - t0) * 1e3)
+                launched = k1.launches  # main path ends
+            if len(seen["k1"]) != launched or seen["k2"]:
+                fail(f"(d) {name}, {tag}: {len(seen['k1'])} K1 calls recorded for {launched} "
+                     f"launches, {len(seen['k2'])} K2 calls (want 0)")
+            if launched:
+                lines.append(hold_kernel_calls(seen, f"(d) {name}, {tag}"))
+            del seen
+            if tag == "2 replicas":
+                res["k1"] += launched
+            res[f"{name} {tag} ms"] = float(np.median(times))
+            want_k1 = 0 if name == "f32 plain" else 3 * (2 if tag == "2 replicas" else 1)
+            if launched != want_k1:
+                fail(f"(d) {name}, {tag}: K1 launched {launched} times in 3 requests "
+                     f"(want {want_k1})")
+            del pred
+        a, b = outs["2 replicas"], outs["1 device"]
+        for k in b:
+            if a[k].shape != b[k].shape or not np.isfinite(a[k]).all():
+                fail(f"(d) {name}: {k} shape {a[k].shape} or non-finite")
+        gap = max(float(np.abs(a[k] - b[k]).max()) for k in b)
+        mean_gap = float(np.mean(np.abs(a["pred_keypoints_3d"] - b["pred_keypoints_3d"])))
+        if name == "f32 plain":
+            ok = all(np.allclose(a[k], b[k], rtol=2e-4, atol=2e-4) for k in b)
+            bar = "rtol 2e-4, atol 2e-4"
+        else:
+            ok = mean_gap < 0.05
+            bar = "mean abs of pred_keypoints_3d < 0.05"
+        lines.append(f"(d) {name}, batch {B_TIME}, DDIM-5: 2 replicas on one card against 1 "
+                     f"device, max |diff| {gap:.3e}, mean |diff| pred_keypoints_3d "
+                     f"{mean_gap:.3e} ({bar}); request, host clock, median of 3: 1 device "
+                     f"{res[f'{name} 1 device ms']:.1f} ms, 2 replicas "
+                     f"{res[f'{name} 2 replicas ms']:.1f} ms")
+        if not ok:
+            fail(lines[-1])
+    res["lines"] = lines
+    return res
+
+
+def phase_parallel(cfg) -> dict:
+    """Phase 10: data parallelism at full width, (a)-(d)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from egohmr_tpu_torch.collision import knn as k2
+    from egohmr_tpu_torch.eval import test_egohmr as cli
+    from egohmr_tpu_torch.models import EgoHMR, ProHMRConfig, init_random_
+    from egohmr_tpu_torch.nn import pointnet_fused as k1
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="dp_")
+    init = init_random_(EgoHMR(cfg), seed=0, training=True).state_dict()
+    torch.save(init, f"{tmp}/init.pt")
+    # (a) NCCL at world 1
+    nccl = phase_parallel_nccl(cfg, init, tmp)
+    # the 1-way evaluation runs that (c) compares with, and (c)'s gradient
+    saved_batch = cli.synthetic_batch
+    cli.synthetic_batch = edge_batch
+    one, counts = {}, {"k1": 0, "k2": 0}
+    try:
+        for name, extra in DP_EVAL_RUNS.items():
+            with kernel_calls() as seen:
+                k1.launches = k2.launches = 0  # main path starts: count launches from here
+                t = time.perf_counter()
+                one[name] = cli.main(EVAL_ARGS + extra)
+                torch.cuda.synchronize()
+                one[f"{name} s"] = time.perf_counter() - t
+                counts["k1"] += k1.launches  # main path ends
+                counts["k2"] += k2.launches
+            log("parallel", hold_kernel_calls(seen, f"(c) eval {name}, 1-way"))
+            del seen
+    finally:
+        cli.synthetic_batch = saved_batch
+    log("parallel", dp_guided_gradient(cfg))
+    # (d) the Predictor over two replicas
+    pred = dp_predictor(cfg)
+    for line in pred["lines"]:
+        log("parallel", line)
+    counts["k1"] += pred["k1"]
+    torch.cuda.empty_cache()
+    # (b) and (c): two ranks on the one card, over gloo
+    t = time.perf_counter()
+    mp.spawn(dp_rank_main, args=(tmp, cfg, ProHMRConfig()),
+             nprocs=DP_WORLD, join=True)
+    spawned_s = time.perf_counter() - t
+    ranks = []
+    for r in range(DP_WORLD):
+        with open(f"{tmp}/rank{r}.json") as f:
+            ranks.append(json.load(f))
+    for line in [*ranks[0]["lines"], *ranks[1]["lines"], *ranks[0]["eval lines"],
+                 *ranks[1]["eval lines"]]:
+        log("parallel", line)
+    for name in ("f32", "bf16-mixed"):
+        eq = [r[f"{name} replicas equal"] for r in ranks]
+        log("parallel", f"(b) {name}: after the compared step and 3 more, rank 1's parameters "
+                        f"and running statistics against rank 0's: "
+                        f"{'equal bit for bit' if all(eq) else 'DIFFER'} (max gap "
+                        f"{ranks[0][f'{name} replicas max gap']:.3e})")
+        if not all(eq):
+            fail(f"(b) {name}: the replicas parted after 4 steps")
+    # (c) the evaluation CLI at two ranks against one
+    for name in DP_EVAL_RUNS:
+        guided = DP_EVAL_GUIDED_STEPS
+        want_k1 = 2 if name == "defaults" else 0
+        for r in ranks:
+            d1, d2 = r[f"eval {name} k1"], r[f"eval {name} k2"]
+            counts["k1"] += d1
+            counts["k2"] += d2
+            if d1 != want_k1 or d2 != 2 * (2 + guided):
+                fail(f"(c) eval {name} on rank {r['rank']}: K1 {d1} launches (want {want_k1}), "
+                     f"K2 {d2} (want {2 * (2 + guided)}: 2 per batch and {guided} guided steps "
+                     "per batch)")
+        a, b = ranks[0][f"eval {name}"], one[name]
+        if a != ranks[1][f"eval {name}"] or set(a) != set(b):
+            fail(f"(c) eval {name}: the ranks' summaries differ, or their keys from the 1-way run's")
+        worst, bad = 0.0, []
+        for key in sorted(b):
+            v, w = a[key], b[key]
+            if np.isnan(v) != np.isnan(w) or np.isinf(v):
+                bad.append(f"{key} {v} vs {w}")
+                continue
+            if np.isnan(v):
+                continue
+            if name == "f32 plain":
+                rel = abs(v - w) / max(abs(w), 1e-12)
+                worst = max(worst, rel)
+                if rel > 1e-4 and abs(v - w) > 1e-9:
+                    bad.append(f"{key} {v} vs {w}")
+            elif ("mpjpe" in key or "v2v" in key) and abs(v - w) > 5.0:
+                bad.append(f"{key} {v:.3f} vs {w:.3f} mm")
+        log("parallel", f"(c) evaluation CLI, {name}, 8 images x 5 samples x 2 batches: 2 ranks "
+                        f"in {ranks[0][f'eval {name} s']:.1f} s against 1 in "
+                        f"{one[f'{name} s']:.1f} s (model set-up included); K1 "
+                        f"{ranks[0][f'eval {name} k1']} and K2 {ranks[0][f'eval {name} k2']} "
+                        f"launches a rank; " + (f"largest relative gap {worst:.2e} (bar 1e-4)"
+                                                if name == "f32 plain" else
+                                                "error keys within 5 mm, NaN in the same places"))
+        if bad:
+            fail(f"(c) eval {name}, 2 ranks against 1: " + "; ".join(bad))
+    r0 = ranks[0]
+    timed = {"nccl world 1": nccl, "2 ranks on one card": {
+        k: r0[k] for k in ("f32 1-way ms", "f32 2-rank ms", "bf16-mixed 1-way ms",
+                           "bf16-mixed 2-rank ms", "gloo all-reduce ms")},
+        "predictor": {k: v for k, v in pred.items() if k.endswith("ms")}}
+    log("parallel", f"stage-2 step, batch {DP_B}, CUDA-event ms: 1-way f32 {r0['f32 1-way ms']:.2f}, "
+                    f"bf16-mixed {r0['bf16-mixed 1-way ms']:.2f}; 2 ranks on one card, 8 a rank, "
+                    f"f32 {r0['f32 2-rank ms']:.2f}, bf16-mixed {r0['bf16-mixed 2-rank ms']:.2f}; "
+                    f"gradient all-reduce ({N_GRAD}): NCCL at world 1 "
+                    f"{nccl['nccl world-1 all-reduce ms']:.2f} ms (CUDA events), gloo over 2 "
+                    f"ranks on CUDA tensors {r0['gloo all-reduce ms']:.1f} ms (host clock)")
+    log("parallel", "two ranks share one card; no scaling figure")
+    log("parallel", f"phase 10 in {time.perf_counter() - t_phase:.1f} s, of which the spawned "
+                    f"ranks {spawned_s:.1f} s")
+    log("parallel", json.dumps(timed))
+    counts["k2"] += sum(r["k2_collision"] for r in ranks)
+    counts["timed"] = timed
+    counts["k2_collision_shape"] = ranks[0]["k2_collision_shape"]
+    return counts
+
+
 def main() -> None:
     smi = phase_device()
     from egohmr_tpu_torch.models import EgoHMRConfig
@@ -2109,17 +2900,21 @@ def main() -> None:
     trained = phase_train(cfg)
     stage1 = phase_stage1()
     learned = phase_learned(cfg)
+    parallel = phase_parallel(cfg)
     # launches: over the main paths, each counted from 0 just before it (K3's
     # main path is the probe's own entry point, counted in its phase)
     kernels[0].update(launches=(unguided + guided["k1"] + evaluated["k1"] + trained["k1"]
-                                + stage1["launches"] + stage1["train_launches"] + learned["k1"]),
-                      launches_learned=learned["k1"],
+                                + stage1["launches"] + stage1["train_launches"] + learned["k1"]
+                                + parallel["k1"]),
+                      launches_learned=learned["k1"], launches_parallel=parallel["k1"],
                       launches_unguided=unguided, launches_guided=guided["k1"],
                       launches_eval=evaluated["k1"], launches_train=trained["k1"],
                       launches_stage1=stage1["launches"],
                       launches_stage1_train=stage1["train_launches"], stage1=stage1["k1"])
-    kernels[1].update(launches=guided["k2"] + evaluated["k2"] + trained["k2"] + learned["k2"],
-                      launches_learned=learned["k2"],
+    kernels[1].update(launches=(guided["k2"] + evaluated["k2"] + trained["k2"] + learned["k2"]
+                                + parallel["k2"]),
+                      launches_learned=learned["k2"], launches_parallel=parallel["k2"],
+                      parallel_collision_shape=parallel["k2_collision_shape"],
                       distill_label_shapes=learned["k2_label_shapes"],
                       launches_unguided=0, launches_guided=guided["k2"],
                       launches_eval=evaluated["k2"], launches_train=trained["k2"],

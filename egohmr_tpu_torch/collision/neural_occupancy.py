@@ -262,15 +262,18 @@ def occupancy_collision_loss(occ: torch.Tensor,
     return masked_mean_loss(torch.square(torch.clamp(occ - 0.5, min=0.0)), mask)
 
 
-def make_learned_guidance_fn(collision_mean, model: SMPLModel, cond, stats, *,
-                             max_scene_points: Optional[int] = 4096):
+def make_learned_guidance_fn(collision_per_body, model: SMPLModel, cond, stats, *,
+                             max_scene_points: Optional[int] = 4096,
+                             global_rows: Optional[int] = None):
     """The guidance of the learned backends: fn(x_t [B, 144], t) -> grad
-    [B, 144] of -collision_mean(smpl_out, betas, scene) w.r.t. x_t, through
-    rot6d, the skeleton and the learned field, with `make_guidance_fn`'s
-    per-joint 1x/2x scale. The field reads only the posed skeleton, so the
-    body is posed by `lbs_transforms` alone (no vertex is skinned). The
-    gradient is taken w.r.t. x_t only, under `torch.enable_grad()`, so the
-    function works inside a `torch.no_grad()` caller."""
+    [B, 144] of minus the batch mean of `collision_per_body(smpl_out, betas,
+    scene)` [B] w.r.t. x_t, through rot6d, the skeleton and the learned
+    field, with `make_guidance_fn`'s per-joint 1x/2x scale. The field reads
+    only the posed skeleton, so the body is posed by `lbs_transforms` alone
+    (no vertex is skinned). The gradient is taken w.r.t. x_t only, under
+    `torch.enable_grad()`, so the function works inside a `torch.no_grad()`
+    caller. `global_rows`: the bodies the mean runs over, as in
+    `make_guidance_fn` (a data-parallel shard passes the whole batch's)."""
     scale = torch.tensor(_GUIDE_JOINT_SCALE, device=cond.scene_pcd.device)[None, :, None]
     betas = cond.pred_betas.detach()
     scene = topk_scene_points(cond.scene_pcd.detach(), max_scene_points)
@@ -280,7 +283,8 @@ def make_learned_guidance_fn(collision_mean, model: SMPLModel, cond, stats, *,
         rotmat = rot6d_to_rotmat(pose6d, "diffusion").reshape(-1, 24, 3, 3)
         _, _, joints, _ = lbs_transforms(model, betas, rotmat)
         out = SMPLOutput(vertices=None, joints=None, full_pose=rotmat, joints_smpl=joints)
-        return -collision_mean(out, betas, scene)
+        per_body = collision_per_body(out, betas, scene)
+        return -torch.sum(per_body) / (global_rows or per_body.shape[0])
 
     def fn(x_t: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         with torch.enable_grad():
@@ -292,14 +296,16 @@ def make_learned_guidance_fn(collision_mean, model: SMPLModel, cond, stats, *,
 
 
 def make_occupancy_guidance_fn(net: PartFieldNet, model: SMPLModel, cond, stats, *,
-                               max_scene_points: Optional[int] = 4096):
+                               max_scene_points: Optional[int] = 4096,
+                               global_rows: Optional[int] = None):
     """Collision guidance through the learned occupancy in place of the mesh
     SDF (`--collision_backend occupancy`)."""
-    def collision_mean(out, betas, scene):
-        return torch.mean(occupancy_collision_loss(occupancy_query(net, out, betas, scene)))
+    def collision_per_body(out, betas, scene):
+        return occupancy_collision_loss(occupancy_query(net, out, betas, scene))
 
-    return make_learned_guidance_fn(collision_mean, model, cond, stats,
-                                    max_scene_points=max_scene_points)
+    return make_learned_guidance_fn(collision_per_body, model, cond, stats,
+                                    max_scene_points=max_scene_points,
+                                    global_rows=global_rows)
 
 
 class LabeledBatch(NamedTuple):

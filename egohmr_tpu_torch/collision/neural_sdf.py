@@ -71,14 +71,16 @@ def sdf_collision_loss(sdf: torch.Tensor, mask: Optional[torch.Tensor] = None) -
 
 
 def make_volsdf_guidance_fn(net: PartFieldNet, model: SMPLModel, cond, stats, *,
-                            max_scene_points: Optional[int] = 4096):
+                            max_scene_points: Optional[int] = 4096,
+                            global_rows: Optional[int] = None):
     """Collision guidance through the learned SDF in place of the mesh SDF
     (`--collision_backend volsdf`)."""
-    def collision_mean(out, betas, scene):
-        return torch.mean(sdf_collision_loss(sdf_query(net, out, betas, scene)))
+    def collision_per_body(out, betas, scene):
+        return sdf_collision_loss(sdf_query(net, out, betas, scene))
 
-    return make_learned_guidance_fn(collision_mean, model, cond, stats,
-                                    max_scene_points=max_scene_points)
+    return make_learned_guidance_fn(collision_per_body, model, cond, stats,
+                                    max_scene_points=max_scene_points,
+                                    global_rows=global_rows)
 
 
 @torch.no_grad()

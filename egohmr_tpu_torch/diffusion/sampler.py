@@ -15,6 +15,7 @@ from typing import Any, Callable, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
+from ..parallel.mesh import Shard, draw_rows
 from .schedule import (
     DiffusionSchedule,
     predict_eps_from_xstart,
@@ -68,16 +69,17 @@ class GuidanceConfig:
     ddim_scale: float = 1.0
 
 
-def _step_noise(x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
-    """Per-step N(0, 1) noise (a seam the tests replace with zeros)."""
-    return torch.randn(x.shape, generator=generator, device=x.device,
-                       dtype=x.dtype)
+def _step_noise(x: torch.Tensor, generator: torch.Generator, shard: Shard) -> torch.Tensor:
+    """Per-step N(0, 1) noise for the rows `x`, the block `shard` of the
+    batch (a seam the tests replace with zeros)."""
+    return draw_rows(shard, x.shape[0], lambda n: torch.randn(
+        (n, *x.shape[1:]), generator=generator, device=x.device, dtype=x.dtype))
 
 
 def _ddpm_step(schedule: DiffusionSchedule, denoise_fn: DenoiseFn,
                guidance_fn: Optional[GuidanceFn], gcfg: GuidanceConfig,
                x: torch.Tensor, t_idx: int, gaux,
-               generator: Optional[torch.Generator]):
+               generator: Optional[torch.Generator], shard: Shard = None):
     t = torch.full((x.shape[0],), t_idx, dtype=torch.int64, device=x.device)
     pred_xstart = denoise_fn(x, schedule.timestep_map[t])
     mean = q_posterior_mean(schedule, pred_xstart, x, t)
@@ -91,13 +93,13 @@ def _ddpm_step(schedule: DiffusionSchedule, denoise_fn: DenoiseFn,
     if t_idx == 0:  # the last step adds no noise
         return mean, gaux
     sigma = torch.exp(0.5 * schedule.posterior_log_variance_clipped[t])[:, None]
-    return mean + sigma * _step_noise(x, generator), gaux
+    return mean + sigma * _step_noise(x, generator, shard), gaux
 
 
 def _ddim_step(schedule: DiffusionSchedule, denoise_fn: DenoiseFn,
                guidance_fn: Optional[GuidanceFn], gcfg: GuidanceConfig,
                eta: float, x: torch.Tensor, t_idx: int, gaux,
-               generator: Optional[torch.Generator]):
+               generator: Optional[torch.Generator], shard: Shard = None):
     t = torch.full((x.shape[0],), t_idx, dtype=torch.int64, device=x.device)
     pred_xstart = denoise_fn(x, schedule.timestep_map[t])
     alpha_bar = schedule.alphas_cumprod[t][:, None]
@@ -117,7 +119,7 @@ def _ddim_step(schedule: DiffusionSchedule, denoise_fn: DenoiseFn,
     # sigma is exactly 0 for eta == 0, and the last step adds no noise
     if eta == 0 or t_idx == 0:
         return mean_pred, gaux
-    return mean_pred + sigma * _step_noise(x, generator), gaux
+    return mean_pred + sigma * _step_noise(x, generator, shard), gaux
 
 
 def sample_loop(
@@ -134,11 +136,16 @@ def sample_loop(
     skip_timesteps: int = 0,
     init_data: Optional[torch.Tensor] = None,
     dump_steps: Optional[Sequence[int]] = None,
+    shard: Shard = None,
 ):
     """Run the reverse diffusion; returns (final_sample, final_pred_xstart).
 
     x_T is `noise` when given, else drawn from `generator` on the
     generator's device; the per-step noise always comes from `generator`.
+    `shard` (a rank's record, or (i, n)): the rows are a block of a larger
+    batch (`parallel.Shard`); x_T and each step's noise are drawn for
+    the whole batch and the block's rows kept, so that the n blocks
+    together draw what the unsharded run draws.
     At t=0 the posterior mean (DDPM) and the DDIM mean equal pred_xstart,
     so both returned tensors are the final sample, as in the JAX package.
 
@@ -153,7 +160,8 @@ def sample_loop(
     if sampler not in ("ddpm", "ddim"):
         raise ValueError(f"unknown sampler: {sampler}")
     if noise is None:
-        x = torch.randn(shape, generator=generator, device=generator.device)
+        x = draw_rows(shard, shape[0], lambda n: torch.randn(
+            (n, *shape[1:]), generator=generator, device=generator.device))
     else:
         x = noise
     t_start = schedule.num_timesteps - skip_timesteps
@@ -175,10 +183,10 @@ def sample_loop(
     for t_idx in range(t_start - 1, -1, -1):
         if sampler == "ddpm":
             x, gaux = _ddpm_step(schedule, denoise_fn, guidance_fn, guidance,
-                                 x, t_idx, gaux, generator)
+                                 x, t_idx, gaux, generator, shard)
         else:
             x, gaux = _ddim_step(schedule, denoise_fn, guidance_fn, guidance,
-                                 eta, x, t_idx, gaux, generator)
+                                 eta, x, t_idx, gaux, generator, shard)
         if dump_steps is not None:
             traj.append(x)
     if dump_steps is not None:

@@ -36,6 +36,7 @@ from ..models import (
     model_outputs,
 )
 from ..nn import cast_params_bf16
+from ..parallel.mesh import Shard, global_rows
 from ..smpl import SMPLModel, SMPLOutput, lbs, vertex_normals
 from .metrics import (
     apd,
@@ -79,6 +80,7 @@ def sample_bodies(
     params_precast: bool = False,
     guidance_refresh_every: int = 1,
     noise: Optional[torch.Tensor] = None,
+    shard: Shard = None,
 ) -> Tuple[Dict[str, torch.Tensor], Condition]:
     """Draw `num_samples` bodies per image; outputs are [B, S, ...].
 
@@ -100,7 +102,15 @@ def sample_bodies(
     else drawn from `generator`. With `bf16` the conditioning and the
     denoiser run in bfloat16 (BatchNorm statistics stay f32 and fold into
     the activation dtype); the sampler, SMPL and the reprojection stay f32.
-    `params_precast` means `model` already is the bf16 copy."""
+    `params_precast` means `model` already is the bf16 copy.
+
+    `shard` (a rank's record, or (i, n)): `batch` is a block of a larger
+    batch (a data-parallel rank's, or a `Predictor` device's;
+    `parallel.Shard`). The B x S sample
+    rows are image-major, so they are the i-th block of the whole batch's;
+    x_T and the step noise are drawn for the whole batch and the block
+    kept, and the guidance's batch mean runs over all n x B x S bodies:
+    the n blocks together give what the whole batch gives in one run."""
     if (with_guidance and guidance_refresh_every != 1
             and collision_backend in ("occupancy", "volsdf")):
         raise ValueError(
@@ -137,17 +147,20 @@ def sample_bodies(
     if with_guidance:
         # cond_s is f32 here on the bf16 path too: the guidance, like SMPL
         # and the reprojection, runs in f32
+        rows = global_rows(shard, B * num_samples)
         if collision_backend == "occupancy":
-            guidance_fn = make_occupancy_guidance_fn(occ_net, smpl, cond_s, stats)
+            guidance_fn = make_occupancy_guidance_fn(occ_net, smpl, cond_s, stats,
+                                                     global_rows=rows)
         elif collision_backend == "volsdf":
-            guidance_fn = make_volsdf_guidance_fn(occ_net, smpl, cond_s, stats)
+            guidance_fn = make_volsdf_guidance_fn(occ_net, smpl, cond_s, stats,
+                                                  global_rows=rows)
         else:
             guidance_fn = make_guidance_fn(
                 model, cfg, smpl, cond_s, stats,
-                selection_refresh_every=guidance_refresh_every)
+                selection_refresh_every=guidance_refresh_every, global_rows=rows)
     _, x0 = sample_loop(schedule, denoise, generator, (B * num_samples, 144),
                         sampler=sampler, guidance_fn=guidance_fn,
-                        guidance=guidance, noise=noise)
+                        guidance=guidance, noise=noise, shard=shard)
     out = model_outputs(cfg, smpl, cond_s, x0, stats)
     out = {k: v.reshape(B, num_samples, *v.shape[1:]) for k, v in out.items()}
     return out, cond

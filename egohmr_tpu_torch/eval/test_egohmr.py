@@ -3,11 +3,20 @@
 The same flags with the same defaults, the same printed summary keys and the
 same `results.pkl` schema, so `tools/visualize_results.py` reads the file.
 What differs: `--device` (default `cuda`) takes the place of `--platform`;
-`--data_parallel` is accepted and must be false unless the process sees a
-single device; `--pointnet_impl fused` means kernel K1 on the card and its
-plain version on the CPU; each batch draws its noise from a
-`torch.Generator` seeded from `--seed` and the batch index. With
-`--device cuda` and no card the CLI fails: it does not carry on on the CPU.
+`--pointnet_impl fused` means kernel K1 on the card and its plain version
+on the CPU; each batch draws its noise from a `torch.Generator` seeded from
+`--seed` and the batch index. With `--device cuda` and no card the CLI
+fails: it does not carry on on the CPU.
+
+Data parallelism runs one process per card under torchrun (`torchrun
+--nproc_per_node=N -m egohmr_tpu_torch.eval.test_egohmr ...`, with
+`--data_parallel true`, the default): each rank samples and scores its
+block of every padded batch, the noise drawn for the whole batch and the
+block kept, and every per-image result is gathered in rank order before
+the accumulation, so rank 0's summary, `results.pkl` and
+smallest-error-sample mode are the 1-way run's. A `--batch_size` that does
+not divide by N is refused (the JAX CLI falls back to one device there),
+as are several visible cards without torchrun.
 
 Usage:
   python -m egohmr_tpu_torch.eval.test_egohmr --synthetic --num_samples 5
@@ -26,9 +35,10 @@ from ..data import pad_batch, synthetic_batch, to_device_batch, to_torch
 from ..diffusion import GuidanceConfig, make_schedule
 from ..models import BodyRepStats, EgoHMR, EgoHMRConfig, init_random_
 from ..nn import cast_params_bf16
+from ..parallel import gather_rows, is_main, rows, shard_batch, shutdown
 from ..smpl import create as smpl_create
 from ..smpl import make_synthetic_model
-from ..utils.device import resolve_device
+from ..utils.device import resolve_data_parallel
 from .pipeline import EvalResult, evaluate_batch, sample_bodies
 
 METRIC_NAMES = ("g_mpjpe", "g_mpjpe_vis", "g_mpjpe_invis",
@@ -128,8 +138,9 @@ def parse_args(argv=None, **default_overrides):
                         "version on the CPU; 'xla' = the exact f32 path of "
                         "plain matmuls")
     p.add_argument("--data_parallel", type=b, default=True,
-                   help="accepted for the original's command lines; must "
-                        "be false when the process sees several devices")
+                   help="data parallelism under torchrun (one process per "
+                        "card; --batch_size is the global batch); a no-op in "
+                        "one process on one device")
     p.add_argument("--device", type=str, default="cuda",
                    help="'cuda' (fails without a card) or 'cpu'")
     if default_overrides:
@@ -209,7 +220,11 @@ def _load_collision_net(args, device):
 
 def main(argv=None, **default_overrides):
     args = parse_args(argv, **default_overrides)
-    device = resolve_device(args.device, args.data_parallel)
+    entry = "egohmr_tpu_torch.eval." + ("test_egohmr_volsmpl" if default_overrides
+                                        else "test_egohmr")
+    device, dp = resolve_data_parallel(args.device, args.data_parallel, entry)
+    rows(dp, args.batch_size)  # raises unless the world size divides the batch
+    main_rank = is_main(dp)
     occ_net = _load_collision_net(args, device)
 
     cfg = EgoHMRConfig(
@@ -294,7 +309,7 @@ def main(argv=None, **default_overrides):
             guidance=guidance, use_stage1_transl=args.two_stage,
             collision_backend=args.collision_backend, occ_net=occ_net, bf16=args.bf16,
             params_precast=args.bf16,
-            guidance_refresh_every=max(1, args.guidance_refresh),
+            guidance_refresh_every=max(1, args.guidance_refresh), shard=dp,
         )
         return evaluate_batch(
             cfg, smpl_n, smpl_m, smpl_f, batch, outputs, cond,
@@ -318,7 +333,11 @@ def main(argv=None, **default_overrides):
         generator = torch.Generator(device=device).manual_seed(
             (args.seed * 1_000_003 + i) % (2 ** 63))
         with torch.no_grad():
-            res, outputs = run_batch(batch, generator)
+            res, outputs = run_batch(shard_batch(dp, batch), generator)
+        # every rank's rows, in rank order: the 1-way run's [B, ...] results
+        res = EvalResult(*(None if v is None else gather_rows(dp, v) for v in res))
+        if dp is not None and (args.save_results or (args.render and i == 0)):
+            outputs = {k: gather_rows(dp, v) for k, v in outputs.items()}
         # to the host, dropping padded rows
         res = EvalResult(*(None if v is None else host(v, n_valid) for v in res))
         n_images += n_valid
@@ -360,9 +379,9 @@ def main(argv=None, **default_overrides):
             if args.two_stage and "stage1_transl_full" in batch:
                 row["pred_cam_full_list"] = host(batch["stage1_transl_full"], n_valid)
             saved.append(row)
-        if args.render and i == 0:
+        if args.render and i == 0 and main_rank:
             _render_batch(args, cfg, smpl_n, batch, outputs, imgnames=imgnames)
-        if i % max(args.log_freq, 1) == 0:
+        if i % max(args.log_freq, 1) == 0 and main_rank:
             g = (np.concatenate(acc["g_mpjpe"]).sum()
                  / max(np.concatenate(weights_acc["g_mpjpe"]).sum(), 1))
             print(f"[batch {i}] images={n_images} G-MPJPE={g*1000:.1f}mm")
@@ -385,12 +404,14 @@ def main(argv=None, **default_overrides):
         chosen = err[np.arange(len(err)), sel]
         summary["mpjpe_invis_min_sample"] = float(
             (chosen * cnt).sum() / max(cnt.sum(), 1e-9) * 1000.0)
-        print("--------- mode: smallest-error-sample-invis from "
-              f"{err.shape[1]} samples ---------")
-        print(f"MPJPE-invis: {summary['mpjpe_invis_min_sample']:.2f}")
-    print(json.dumps(summary, indent=2))
+        if main_rank:
+            print("--------- mode: smallest-error-sample-invis from "
+                  f"{err.shape[1]} samples ---------")
+            print(f"MPJPE-invis: {summary['mpjpe_invis_min_sample']:.2f}")
+    if main_rank:
+        print(json.dumps(summary, indent=2))
 
-    if args.save_results:
+    if args.save_results and main_rank:
         # reference layout: {save_root}/output_egohmr_{model_id}/
         # results_seed_{seed}.pkl
         model_id = (os.path.basename(os.path.dirname(args.checkpoint))
@@ -403,6 +424,7 @@ def main(argv=None, **default_overrides):
         with open(out_path, "wb") as f:
             pickle.dump(out, f, protocol=2)
         print(f"[INFO] pred results saved to {out_dir}.")
+    shutdown(dp)
     return summary
 
 

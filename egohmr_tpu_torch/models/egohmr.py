@@ -62,6 +62,7 @@ from ..nn import (
 )
 from ..nn.gcn import ModulatedGraphConv, NonLocalBlock
 from ..nn.pointnet import ResnetBlockFC
+from ..parallel.mesh import DataParallel
 from ..smpl import (
     SMPLModel,
     lbs,
@@ -250,7 +251,8 @@ def _cam_feats(cfg: EgoHMRConfig, batch: Dict[str, torch.Tensor]) -> torch.Tenso
 
 def compute_condition(model: EgoHMR, cfg: EgoHMRConfig,
                       batch: Dict[str, torch.Tensor], *, train: bool = False,
-                      drop: Optional[torch.Tensor] = None) -> Condition:
+                      drop: Optional[torch.Tensor] = None,
+                      dp: Optional[DataParallel] = None) -> Condition:
     """Run all conditioners once. The scene cloud is moved into the body's
     frame (minus the input translation), as the reference does.
 
@@ -259,9 +261,10 @@ def compute_condition(model: EgoHMR, cfg: EgoHMRConfig,
     `pointnet_forward` (kernel K1 has no backward); and with
     `cfg.cond_mask_prob` > 0 an image's condition is replaced by the
     unconditional one where `drop` [B] bool is True (`train.stage2_loss`
-    draws it)."""
+    draws it). With a data-parallel record `dp`, the ResNet's training
+    statistics are the whole batch's."""
     B = batch["img"].shape[0]
-    img_feats = resnet_forward(model.backbone, batch["img"], train=train)
+    img_feats = resnet_forward(model.backbone, batch["img"], train=train, dp=dp)
 
     vis_openpose = batch["orig_keypoints_2d"][:, :, -1] > 0
     vis_openpose[:, 8] = True  # pelvis always visible
@@ -357,18 +360,20 @@ def make_denoise_fn(model: EgoHMR, cfg: EgoHMRConfig, cond: Condition, *,
 
 
 def denoise_x0(model: EgoHMR, cfg: EgoHMRConfig, cond: Condition,
-               x_t: torch.Tensor, t_orig: torch.Tensor) -> torch.Tensor:
+               x_t: torch.Tensor, t_orig: torch.Tensor,
+               dp: Optional[DataParallel] = None) -> torch.Tensor:
     """Predicted normalised x0 [B, 144] from (x_t [B, 144], t_orig [B]) as
     training runs it: one GCN call on the whole input, the condition as
     drawn (no cond/uncond split), the GCN's BatchNorms on the batch's
-    statistics. Sampling goes through `make_denoise_fn`."""
+    statistics (the whole data-parallel batch's with `dp`). Sampling goes
+    through `make_denoise_fn`."""
     B = x_t.shape[0]
     t_emb = timestep_embed(model.embed_timestep, t_orig)
     t_emb24 = t_emb[:, None, :].expand(B, 24, t_emb.shape[-1])
     x_feat = input_process(model.input_process, x_t.reshape(B, 24, 6))
     feats = torch.cat([cond.cond, x_feat, t_emb24], dim=-1)
     out = modulated_gcn_forward(model.diffusion_model, _adjacency(x_t.device),
-                                feats, train=True)
+                                feats, train=True, dp=dp)
     return out.reshape(B, 24 * 6)
 
 
@@ -391,6 +396,7 @@ def make_guidance_fn(
     max_scene_points: Optional[int] = 4096,
     per_step_points: Optional[int] = 1024,
     selection_refresh_every: int = 1,
+    global_rows: Optional[int] = None,
 ):
     """Collision-score gradient w.r.t. x_t, batched with static shapes:
     returns fn(x_t [B, 144], t [B]) -> grad [B, 144]. `model` and `cfg` are
@@ -427,7 +433,14 @@ def make_guidance_fn(
     step (exact). N > 1 returns a `StatefulGuidanceFn`: the sampler carries
     (pts, mask, nn_idx, sign) across guided steps and refreshes them on
     every N-th; in between, the selection is that of a body a few steps
-    old, an approximation."""
+    old, an approximation.
+
+    `global_rows`: the number of bodies the differentiated batch mean runs
+    over, by default x_t's. A shard of a data-parallel batch passes the
+    whole batch's, so that each body feels the gradient it would in the
+    1-way run: the shard's loss is its sum over the global count (each
+    body's gradient depends on its own rows only, so no collective is
+    needed)."""
     dev = cond.scene_pcd.device
     # constants go to the device once, here, not inside a guided step
     scale = torch.tensor(_GUIDE_JOINT_SCALE, device=dev)[None, :, None]  # [1,24,1]
@@ -469,7 +482,8 @@ def make_guidance_fn(
         _, pf, _, rel = lbs_transforms(smpl, betas, rotmats(x_t))
         v_near = lbs_apply_select(smpl, betas, pf, rel, idx)
         sdf = sign * torch.linalg.norm(pts - v_near, dim=-1)
-        return -torch.mean(collision_loss(sdf, mask.to(sdf.dtype)))
+        per_body = collision_loss(sdf, mask.to(sdf.dtype))
+        return -torch.sum(per_body) / (global_rows or per_body.shape[0])
 
     def grad_given(x_t: torch.Tensor, sel) -> torch.Tensor:
         with torch.enable_grad():

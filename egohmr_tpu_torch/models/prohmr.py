@@ -48,6 +48,7 @@ from ..nn import (
     pointnet_forward_fused,
     resnet_forward,
 )
+from ..parallel.mesh import DataParallel
 from ..smpl import SMPLModel, lbs
 from ..smpl import constants as C
 from .egohmr import init_random_ as _init_random_parts
@@ -147,11 +148,13 @@ def _index(device: torch.device, name: str) -> torch.Tensor:
 
 
 def conditioning_feats(model: ProHMR, cfg: ProHMRConfig, batch: Dict[str, torch.Tensor], *,
-                       train: bool = False, scene_cano: bool = False) -> torch.Tensor:
+                       train: bool = False, scene_cano: bool = False,
+                       dp: Optional[DataParallel] = None) -> torch.Tensor:
     """The flow's context [B, context_feats_dim], ordered
     [cam_center][bbox][fx][img][scene]. `scene_cano` moves the scene into
-    the GT body's frame (minus its translation)."""
-    img_feats = resnet_forward(model.backbone, batch["img"], train=train)
+    the GT body's frame (minus its translation). With a data-parallel
+    record `dp`, the backbone's training statistics are the whole batch's."""
+    img_feats = resnet_forward(model.backbone, batch["img"], train=train, dp=dp)
     orig_fx = batch["fx"] * cfg.fx_norm_coeff
     feats = []
     if cfg.with_cam_center:
@@ -213,13 +216,14 @@ class ProHMROutput(NamedTuple):
 def forward(model: ProHMR, cfg: ProHMRConfig, smpl: SMPLModel, batch: Dict,
             num_samples: int, *, generator: Optional[torch.Generator] = None,
             z: Optional[torch.Tensor] = None, train: bool = False,
-            scene_cano: bool = False) -> ProHMROutput:
+            scene_cano: bool = False, dp: Optional[DataParallel] = None) -> ProHMROutput:
     """`num_samples` poses per image; sample 0 is always the mode, z = 0.
     `z` [B, S, 144] is the noise to map (its sample 0 must be zeros), or
-    samples 1.. are drawn from `generator` on the batch's device."""
+    samples 1.. are drawn from `generator` on the batch's device. `dp`: the
+    data-parallel record of `conditioning_feats`."""
     B = batch["img"].shape[0]
     S = num_samples
-    ctx = conditioning_feats(model, cfg, batch, train=train, scene_cano=scene_cano)
+    ctx = conditioning_feats(model, cfg, batch, train=train, scene_cano=scene_cano, dp=dp)
     if z is None:
         z = ctx.new_zeros((B, S, cfg.flow_dim))
         if S > 1:
@@ -297,12 +301,12 @@ class ProHMRLossWeights:
 def compute_loss(model: ProHMR, cfg: ProHMRConfig, w: ProHMRLossWeights,
                  smpl_male: SMPLModel, smpl_female: SMPLModel, batch: Dict,
                  out: ProHMROutput, *, train: bool,
-                 generator: Optional[torch.Generator] = None,
                  nll_noise: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(total, {term: value}). In training the GT pose whose NLL is taken
     carries noise of `cfg.smpl_param_noise_ratio`: `nll_noise` [B, 144]
-    (standard normal), or drawn from `generator`."""
+    (standard normal), which training must hand in (`train/prohmr_loop.py:
+    generator_loss` draws it)."""
     B, S = out.pred_pose_6d.shape[:2]
     dev = out.pred_pose_6d.device
     s2o = _index(dev, "SMPL_TO_OPENPOSE")
@@ -359,7 +363,7 @@ def compute_loss(model: ProHMR, cfg: ProHMRConfig, w: ProHMRLossWeights,
     gt_6d = gt_pose_prohmr_6d(batch)
     if train:
         if nll_noise is None:
-            nll_noise = torch.randn(gt_6d.shape, generator=generator, device=dev)
+            raise ValueError("compute_loss(train=True) needs nll_noise")
         gt_6d = gt_6d + cfg.smpl_param_noise_ratio * nll_noise
     log_prob, _ = glow_log_prob(model.flow.flow, gt_6d, out.conditioning_feats)
     l_nll = -log_prob.mean()

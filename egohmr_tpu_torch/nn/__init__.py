@@ -14,7 +14,7 @@ from .embedders import (
     transl_enc,
 )
 from .gcn import ModulatedGCN, NonLocalBlock, modulated_gcn_forward, nonlocal_block
-from .pointnet import ResnetPointnet, pointnet_forward
+from .pointnet import ResnetPointnet, pointnet_forward, pointnet_forward_point_sharded
 from .pointnet_fused import (
     pointnet_forward_fused,
     pointnet_fused_feature,

@@ -19,10 +19,12 @@ the gradients land in f32 on the f32 master weights.
 from __future__ import annotations
 
 import copy
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
+
+from ..parallel.mesh import DataParallel, all_reduce_sum
 
 _BN_NAMES = frozenset(("weight", "bias", "running_mean", "running_var",
                        "num_batches_tracked"))
@@ -59,7 +61,8 @@ def batchnorm_eval(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
 
 
 def batchnorm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
-              channel_dim: int, *, train: bool) -> torch.Tensor:
+              channel_dim: int, *, train: bool,
+              dp: Optional[DataParallel] = None) -> torch.Tensor:
     """BatchNorm with channels on `channel_dim`, in JAX's arithmetic.
 
     Training: the batch statistics are f32 whatever the activation dtype,
@@ -67,15 +70,25 @@ def batchnorm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
     gradients flow through them; the running statistics move by momentum
     `bn.momentum` towards the batch mean and the variance unbiased by
     n / (n - 1), written in place outside autograd. Eval: the running
-    statistics (`batchnorm_eval`)."""
+    statistics (`batchnorm_eval`).
+
+    With a data-parallel record `dp` the training statistics are the whole
+    batch's (cross-replica BatchNorm, JAX's `axis_name`): mean(x) and
+    mean(x^2) are summed over the ranks in one differentiable all-reduce
+    and divided by the world size, and the unbiased correction counts the
+    global n x world rows, not the shard's."""
     if not train:
         return batchnorm_eval(bn, x, channel_dim)
     channel_dim %= x.ndim
     reduce = tuple(d for d in range(x.ndim) if d != channel_dim)
     xs = x.float()
     mean = xs.mean(dim=reduce)
-    var = xs.square().mean(dim=reduce) - mean.square()
+    mean2 = xs.square().mean(dim=reduce)
     n = x.numel() // x.shape[channel_dim]
+    if dp is not None:
+        mean, mean2 = (all_reduce_sum(dp, torch.cat([mean, mean2])) / dp.size).chunk(2)
+        n *= dp.size
+    var = mean2 - mean.square()
     m = bn.momentum
     with torch.no_grad():
         bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean)

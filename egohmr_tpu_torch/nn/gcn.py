@@ -18,6 +18,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ..parallel.mesh import DataParallel
 from .core import batchnorm, mm
 
 
@@ -90,13 +91,14 @@ def modulated_gconv(p: ModulatedGraphConv, adj: torch.Tensor,
     return modulated_gconv_mix(p, adj, x @ p.W[0], x @ p.W[1])
 
 
-def _bn_relu(bn: nn.BatchNorm1d, x: torch.Tensor, train: bool) -> torch.Tensor:
-    return torch.relu(batchnorm(bn, x, channel_dim=-1, train=train))
+def _bn_relu(bn: nn.BatchNorm1d, x: torch.Tensor, train: bool,
+             dp: Optional[DataParallel] = None) -> torch.Tensor:
+    return torch.relu(batchnorm(bn, x, channel_dim=-1, train=train, dp=dp))
 
 
 def graph_conv(p: GraphConv, adj: torch.Tensor, x: torch.Tensor,
-               train: bool = False) -> torch.Tensor:
-    return _bn_relu(p.bn, modulated_gconv(p.gconv, adj, x), train)
+               train: bool = False, dp: Optional[DataParallel] = None) -> torch.Tensor:
+    return _bn_relu(p.bn, modulated_gconv(p.gconv, adj, x), train, dp)
 
 
 def _conv1x1(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
@@ -105,14 +107,15 @@ def _conv1x1(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     return y + conv.bias.to(torch.promote_types(y.dtype, conv.bias.dtype))
 
 
-def nonlocal_block(p: NonLocalBlock, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
+def nonlocal_block(p: NonLocalBlock, x: torch.Tensor, *, train: bool = False,
+                   dp: Optional[DataParallel] = None) -> torch.Tensor:
     """x [B, J, C] -> [B, J, C]: z = BN(W(softmax(theta(x) phi(x)^T) g(x))) + x,
     the softmax over the nodes in f32 whatever the activation dtype."""
     g_x, theta_x, phi_x = (_conv1x1(c, x) for c in (p.g, p.theta, p.phi))
     f = torch.einsum("bjc,bkc->bjk", theta_x, phi_x)
     f = torch.softmax(f.float(), dim=-1).to(x.dtype)
     y = torch.einsum("bjk,bkc->bjc", f, g_x)
-    w_y = batchnorm(p.W[1], _conv1x1(p.W[0], y), channel_dim=-1, train=train)
+    w_y = batchnorm(p.W[1], _conv1x1(p.W[0], y), channel_dim=-1, train=train, dp=dp)
     return x + w_y
 
 
@@ -123,23 +126,25 @@ def modulated_gcn_forward(
     *,
     train: bool = False,
     input_h: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    dp: Optional[DataParallel] = None,
 ) -> torch.Tensor:
     """x [B, 24, in] -> [B, 24, out]. `train`: BatchNorm on the batch's
-    statistics, updating the running ones.
+    statistics, updating the running ones; with `dp`, on the whole
+    data-parallel batch's.
 
     `input_h`: precomputed (x @ W[0], x @ W[1]) of the input layer, so the
     sampler can hoist the loop-invariant conditioning projection; `x` is
     ignored when given."""
     gi = model.gconv_input[0]
     if input_h is not None:
-        out = _bn_relu(gi.bn, modulated_gconv_mix(gi.gconv, adj, *input_h), train)
+        out = _bn_relu(gi.bn, modulated_gconv_mix(gi.gconv, adj, *input_h), train, dp)
     else:
-        out = graph_conv(gi, adj, x, train)
+        out = graph_conv(gi, adj, x, train, dp)
     for blk in model.gconv_layers:
         residual = out
-        out = graph_conv(blk.gconv1, adj, out, train)
-        out = graph_conv(blk.gconv2, adj, out, train)
+        out = graph_conv(blk.gconv1, adj, out, train, dp)
+        out = graph_conv(blk.gconv2, adj, out, train, dp)
         out = residual + out
     if model.non_local is not None:
-        out = nonlocal_block(model.non_local, out, train=train)
+        out = nonlocal_block(model.non_local, out, train=train, dp=dp)
     return modulated_gconv(model.gconv_output, adj, out)

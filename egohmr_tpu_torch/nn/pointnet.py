@@ -8,6 +8,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..parallel.mesh import DataParallel, all_reduce_max
 from .core import linear, mm
 
 
@@ -57,6 +58,27 @@ def pointnet_forward(model: ResnetPointnet, points: torch.Tensor,
         if mask is not None:
             net = torch.where(mask[..., None], net, -1e30)
         return net.amax(dim=1, keepdim=True)
+
+    net = linear(model.fc_pos_0, points)
+    net = _block(model.block_0, net)
+    net = _block_split(model.block_1, net, pool(net))
+    net = _block_split(model.block_2, net, pool(net))
+    net = _block_split(model.block_3, net, pool(net))
+    net = pool(net)[:, 0]
+    return linear(model.fc_c, torch.relu(net))
+
+
+@torch.no_grad()
+def pointnet_forward_point_sharded(model: ResnetPointnet, points: torch.Tensor,
+                                   dp: DataParallel) -> torch.Tensor:
+    """`pointnet_forward` with the POINT axis sharded over the ranks of
+    `dp`: each rank encodes its shard [B, N / world, 3] of every cloud, and
+    the four max-pools become an all-reduce(MAX), so that every rank
+    returns the whole clouds' [B, out_dim]. Equal to `pointnet_forward` on
+    the gathered clouds up to the matmuls' rounding: a max is exact in any
+    order. Inference only, as in the JAX package (a `pmax` there)."""
+    def pool(net):
+        return all_reduce_max(dp, net.amax(dim=1, keepdim=True))
 
     net = linear(model.fc_pos_0, points)
     net = _block(model.block_0, net)

@@ -8,10 +8,13 @@ Module and key names follow torchvision (`layer1.0.conv1`, ...,
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import DataParallel
 from .core import batchnorm
 
 RESNET_LAYERS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3),
@@ -68,9 +71,10 @@ class ResNet(nn.Module):
             setattr(self, f"layer{li}", nn.Sequential(*blocks))
 
 
-def _block(blk: nn.Module, x: torch.Tensor, stride: int, train: bool) -> torch.Tensor:
+def _block(blk: nn.Module, x: torch.Tensor, stride: int, train: bool,
+           dp: Optional[DataParallel]) -> torch.Tensor:
     def bn(mod, y):  # statistics over (N, H, W) in training
-        return batchnorm(mod, y, channel_dim=1, train=train)
+        return batchnorm(mod, y, channel_dim=1, train=train, dp=dp)
 
     if isinstance(blk, Bottleneck):
         out = torch.relu(bn(blk.bn1, F.conv2d(x, blk.conv1.weight)))
@@ -89,17 +93,17 @@ def _block(blk: nn.Module, x: torch.Tensor, stride: int, train: bool) -> torch.T
     return torch.relu(out + res)
 
 
-def resnet_forward(model: ResNet, x_nhwc: torch.Tensor, *,
-                   train: bool = False) -> torch.Tensor:
+def resnet_forward(model: ResNet, x_nhwc: torch.Tensor, *, train: bool = False,
+                   dp: Optional[DataParallel] = None) -> torch.Tensor:
     """x [B, H, W, 3] NHWC -> mean-pooled stage-4 features [B, C]. `train`:
     every BatchNorm normalises by the batch's statistics and updates its
-    running ones."""
+    running ones; with `dp`, by the whole data-parallel batch's."""
     x = x_nhwc.permute(0, 3, 1, 2)  # NCHW view, channels_last in memory
     out = F.conv2d(x, model.conv1.weight, stride=2, padding=3)
-    out = torch.relu(batchnorm(model.bn1, out, channel_dim=1, train=train))
+    out = torch.relu(batchnorm(model.bn1, out, channel_dim=1, train=train, dp=dp))
     out = F.max_pool2d(out, 3, 2, 1)  # pads with -inf, as the JAX max_pool
     for li in range(1, 5):
         for b, blk in enumerate(getattr(model, f"layer{li}")):
             stride = (2 if li > 1 else 1) if b == 0 else 1
-            out = _block(blk, out, stride, train)
+            out = _block(blk, out, stride, train, dp)
     return out.mean(dim=(2, 3))

@@ -1,5 +1,5 @@
-"""Serving wrapper for stage-2 body sampling on one device (port of
-egohmr_tpu/serving.py:Predictor, without meshes or tensor parallelism).
+"""Serving wrapper for stage-2 body sampling (port of
+egohmr_tpu/serving.py:Predictor, without tensor parallelism).
 
   * one fixed (batch_size, num_samples) shape: short requests are padded
     and the results trimmed;
@@ -9,13 +9,17 @@ egohmr_tpu/serving.py:Predictor, without meshes or tensor parallelism).
   * `map_batches` keeps a bounded window of requests in flight: PyTorch
     queues work asynchronously, so the host prepares and submits request
     i+1 while the card still runs request i, and waits only on the readback
-    event of the oldest request.
+    event of the oldest request;
+  * `device` may be a sequence of devices, the counterpart of the JAX
+    package's 1-D `mesh=`: one replica per entry, each request's batch
+    split into equal blocks of rows, one per replica.
 """
 from __future__ import annotations
 
+import copy
 from collections import deque
 from dataclasses import replace
-from typing import Dict, Iterable, Iterator, NamedTuple, Optional
+from typing import Dict, Iterable, Iterator, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -25,6 +29,7 @@ from .diffusion import DiffusionSchedule, GuidanceConfig
 from .eval.pipeline import sample_bodies
 from .models import BodyRepStats, EgoHMR, EgoHMRConfig
 from .nn import cast_params_bf16
+from .parallel.mesh import shard_batch
 from .smpl import SMPLModel
 
 # the compact default output set; pose/betas (+ the input translation)
@@ -54,7 +59,21 @@ class Predictor:
     collision-score guidance when `with_guidance`, SMPL skinning and
     reprojection. `pointnet_impl` overrides
     `cfg.pointnet_impl`: the scene encoder is kernel K1 by default
-    ("fused"), or plain torch matmuls ("xla")."""
+    ("fused"), or plain torch matmuls ("xla").
+
+    `device` may be a sequence of devices (the JAX package's 1-D `mesh=`):
+    `batch_size` must divide by its length; each entry holds a replica
+    (cast to bf16 once, at load), and each request's rows are split into
+    equal blocks, one per replica, launched in turn from the host thread.
+    A request's x_T is drawn from its seeded generator for the whole batch
+    on the first device and each block copied to its replica; the step
+    noise is drawn for the whole batch too and each replica keeps its rows,
+    and the guidance's batch mean runs over the whole batch, so the
+    outputs are those of one device. They are assembled on the first
+    device in row order. Two entries may name the same card; each is then
+    a replica of its own. A 2-D data x model grid (a sequence of
+    sequences) is the JAX package's tensor-parallel mode, which is not
+    ported (`parallel/tp.py`, ROADMAP queue 1)."""
 
     def __init__(
         self,
@@ -64,7 +83,7 @@ class Predictor:
         stats: BodyRepStats,
         schedule: DiffusionSchedule,
         *,
-        device: torch.device,
+        device: Union[torch.device, str, Sequence[Union[torch.device, str]]],
         batch_size: int = 64,
         num_samples: int = 1,
         bf16: bool = True,
@@ -77,8 +96,23 @@ class Predictor:
         guidance: GuidanceConfig = GuidanceConfig(),
     ):
         self.cfg = replace(cfg, pointnet_impl=pointnet_impl)
-        self.device = torch.device(device)
+        devices = list(device) if isinstance(device, (list, tuple)) else [device]
+        if any(isinstance(d, (list, tuple)) for d in devices):
+            raise NotImplementedError(
+                "a 2-D data x model device grid is the JAX package's tensor-parallel "
+                "serving mode, which the port does not have yet (parallel/tp.py, "
+                "ROADMAP queue 1); pass one device or a flat sequence of devices")
+        if not devices:
+            raise ValueError("Predictor needs at least one device")
+        self.devices = [torch.device(d) for d in devices]
+        self.device = self.devices[0]
         self.batch_size = int(batch_size)
+        if self.batch_size % len(self.devices):
+            raise ValueError(f"batch_size {self.batch_size} must divide by the "
+                             f"{len(self.devices)} devices")
+        if len({d.type for d in self.devices}) > 1:
+            raise ValueError("the devices of one Predictor must be of one type: "
+                             f"{[str(d) for d in self.devices]}")
         self.num_samples = int(num_samples)
         self.bf16 = bf16
         self.max_inflight = max(1, int(max_inflight))
@@ -89,19 +123,15 @@ class Predictor:
         self._output_keys = tuple(output_keys)
         if bf16:
             model = cast_params_bf16(model)
-        self._model = model.to(self.device, memory_format=torch.channels_last).eval()
-        self._smpl = smpl.to(self.device)
-        self._stats = BodyRepStats(stats.mean.to(self.device),
-                                   stats.std.to(self.device))
-        self._schedule = schedule.to(self.device)
+        self._replicas = []
+        for i, d in enumerate(self.devices):
+            rep = model if i == 0 else copy.deepcopy(model)
+            self._replicas.append((
+                rep.to(d, memory_format=torch.channels_last).eval(), smpl.to(d),
+                BodyRepStats(stats.mean.to(d), stats.std.to(d)), schedule.to(d)))
         self._layout = None  # [(key, trailing_shape, offset, size)]
 
-    def _run(self, batch: Dict, generator: torch.Generator) -> torch.Tensor:
-        outs, _ = sample_bodies(
-            self._model, self.cfg, self._smpl, self._stats, self._schedule,
-            batch, generator, self.num_samples, sampler=self.sampler,
-            with_guidance=self.with_guidance, guidance=self.guidance,
-            bf16=self.bf16, params_precast=self.bf16)
+    def _pack(self, outs: Dict) -> torch.Tensor:
         missing = [k for k in self._output_keys if k not in outs]
         if missing:
             raise ValueError(f"output_keys {missing} not produced by the "
@@ -116,8 +146,31 @@ class Predictor:
                 off += size
             self._layout = layout
         flat = [outs[k].to(self.pack_dtype).reshape(
-            self.batch_size, self.num_samples, -1) for k in keys]
+            outs[k].shape[0], self.num_samples, -1) for k in keys]
         return torch.cat(flat, dim=-1)
+
+    def _sample(self, replica, batch: Dict, generator: torch.Generator, **kw) -> Dict:
+        model, smpl, stats, schedule = replica
+        outs, _ = sample_bodies(
+            model, self.cfg, smpl, stats, schedule,
+            batch, generator, self.num_samples, sampler=self.sampler,
+            with_guidance=self.with_guidance, guidance=self.guidance,
+            bf16=self.bf16, params_precast=self.bf16, **kw)
+        return outs
+
+    def _run(self, batch: Dict, generator: torch.Generator) -> torch.Tensor:
+        n = len(self.devices)
+        x_T = torch.randn((self.batch_size * self.num_samples, 144), generator=generator,
+                          device=self.device)
+        state = generator.get_state()
+        parts = []
+        for i, (d, replica) in enumerate(zip(self.devices, self._replicas)):
+            g = torch.Generator(device=d)
+            g.set_state(state)
+            parts.append(self._pack(self._sample(
+                replica, to_torch(shard_batch((i, n), batch), d), g,
+                noise=shard_batch((i, n), x_T).to(d), shard=(i, n))))
+        return torch.cat([p.to(self.device) for p in parts])
 
     def submit(self, batch: Dict, *, seed: int = 0) -> Pending:
         """Queue one request (asynchronous on the card)."""

@@ -19,11 +19,18 @@ terms -> backward -> AdamW, eager on one device. As in the JAX package:
   loss scaling.
 * `t`, the noise and the condition-drop mask are drawn from an explicit
   `torch.Generator`, or handed in (the parity tests hand in the JAX draws).
+* Data parallelism (a `parallel.DataParallel` record `dp`; JAX's
+  `shard_map` over a 1-D mesh): each rank holds a replica and a block of
+  the batch, every BatchNorm takes the whole batch's statistics, the
+  gradients and the metrics are averaged over the ranks before AdamW, and
+  the draws are made for the whole batch from the same generator on every
+  rank, each rank keeping its rows (JAX keys them by the global sample
+  index): an N-way step draws what the 1-way step draws.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -42,6 +49,7 @@ from ..models import (
     model_outputs,
 )
 from ..nn import bf16_tensors
+from ..parallel.mesh import DataParallel, draw_rows, mean_grads, mean_metrics
 from ..smpl import SMPLModel
 
 # buffers that training updates: a parameter leaf in the JAX package, left
@@ -82,6 +90,11 @@ def fill_missing_grads(optimizer: torch.optim.Optimizer) -> None:
                 p.grad = torch.zeros_like(p)
 
 
+def optimizer_tensors(optimizer: torch.optim.Optimizer) -> List[torch.Tensor]:
+    """Every tensor `optimizer` updates, in its groups' order."""
+    return [p for group in optimizer.param_groups for p in group["params"]]
+
+
 def make_optimizer(model: EgoHMR, tcfg: TrainConfig) -> torch.optim.AdamW:
     """AdamW over `trainable_tensors(model)`: decoupled weight decay, betas
     (0.9, 0.999), eps 1e-8, as `optax.adamw`."""
@@ -103,14 +116,15 @@ class _Stage2Forward(nn.Module):
     """The conditioning and the denoiser as one module call, so that
     `functional_call` can run them on the bf16 casts of the weights."""
 
-    def __init__(self, model: EgoHMR, cfg: EgoHMRConfig):
+    def __init__(self, model: EgoHMR, cfg: EgoHMRConfig, dp: Optional[DataParallel]):
         super().__init__()
-        self.model, self.cfg = model, cfg
+        self.model, self.cfg, self.dp = model, cfg, dp
 
     def forward(self, batch: Dict, x_t: torch.Tensor, t_orig: torch.Tensor,
                 drop: Optional[torch.Tensor]) -> Tuple[Condition, torch.Tensor]:
-        cond = compute_condition(self.model, self.cfg, batch, train=True, drop=drop)
-        return cond, denoise_x0(self.model, self.cfg, cond, x_t, t_orig)
+        cond = compute_condition(self.model, self.cfg, batch, train=True, drop=drop,
+                                 dp=self.dp)
+        return cond, denoise_x0(self.model, self.cfg, cond, x_t, t_orig, dp=self.dp)
 
 
 def stage2_loss(
@@ -131,24 +145,30 @@ def stage2_loss(
     t: Optional[torch.Tensor] = None,
     noise: Optional[torch.Tensor] = None,
     drop: Optional[torch.Tensor] = None,
+    dp: Optional[DataParallel] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One training forward: t ~ U{0..T-1}, q_sample, denoise, loss.
     Returns (loss, {term: value}); the BatchNorm running statistics are
     updated in place. `t` [B] int64, `noise` [B, 144] and `drop` [B] bool
     are drawn from `generator` (on the batch's device), in that order,
-    where not given."""
+    where not given. With a data-parallel record `dp`, `batch` is the
+    rank's block: the draws are made for the whole batch and the rank's
+    rows kept, and every BatchNorm takes the whole batch's statistics."""
     B, dev = batch["img"].shape[0], batch["img"].device
     x_start = gt_pose_to_x_start(batch, stats)
     if t is None:
-        t = torch.randint(0, schedule.num_timesteps, (B,), generator=generator, device=dev)
+        t = draw_rows(dp, B, lambda n: torch.randint(
+            0, schedule.num_timesteps, (n,), generator=generator, device=dev))
     if noise is None:
-        noise = torch.randn(x_start.shape, generator=generator, device=dev)
+        noise = draw_rows(dp, B, lambda n: torch.randn(
+            (n, *x_start.shape[1:]), generator=generator, device=dev))
     if drop is None and cfg.cond_mask_prob > 0.0:
-        drop = torch.rand(B, generator=generator, device=dev) < cfg.cond_mask_prob
+        drop = draw_rows(dp, B, lambda n: torch.rand(
+            n, generator=generator, device=dev) < cfg.cond_mask_prob)
     x_t = q_sample(schedule, x_start, t, noise)
     t_orig = schedule.timestep_map[t]
 
-    forward = _Stage2Forward(model, cfg)
+    forward = _Stage2Forward(model, cfg, dp)
     if mixed_precision:
         casts = {"model." + k: v for k, v in bf16_tensors(model).items()}
         cond, x0_pred = torch.func.functional_call(
@@ -175,10 +195,17 @@ def make_train_step(
     smpl_male: SMPLModel,
     smpl_female: SMPLModel,
     optimizer: torch.optim.Optimizer,
+    dp: Optional[DataParallel] = None,
 ):
     """step(model, batch, generator=None, *, t=None, noise=None, drop=None)
     -> {term: detached loss}: forward, backward and one `optimizer` step,
-    in place on the model and the optimizer."""
+    in place on the model and the optimizer.
+
+    With a data-parallel record `dp` (JAX's `mesh=`), `batch` is the rank's
+    block of the batch and the model a replica equal on every rank: the
+    gradients and the terms are averaged over the ranks after the
+    backward, so every replica takes the same AdamW step. Handed-in draws
+    are the rank's rows."""
 
     def step(model: EgoHMR, batch: Dict, generator: Optional[torch.Generator] = None,
              **draws) -> Dict[str, torch.Tensor]:
@@ -187,10 +214,11 @@ def make_train_step(
             model, cfg, weights, schedule, stats, smpl_neutral, smpl_male, smpl_female,
             batch, use_collision=tcfg.use_collision_loss,
             max_collision_points=tcfg.max_collision_points,
-            mixed_precision=tcfg.mixed_precision, generator=generator, **draws)
+            mixed_precision=tcfg.mixed_precision, generator=generator, dp=dp, **draws)
         loss.backward()
         fill_missing_grads(optimizer)
+        mean_grads(dp, optimizer_tensors(optimizer))
         optimizer.step()
-        return {k: v.detach() for k, v in terms.items()}
+        return mean_metrics(dp, {k: v.detach() for k, v in terms.items()})
 
     return step

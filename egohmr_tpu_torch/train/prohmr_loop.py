@@ -17,6 +17,13 @@ package:
   normal) and the noise on the GT pose whose NLL is taken (`nll_noise`,
   [B, 144]) come from an explicit `torch.Generator`, in that order, or are
   handed in (the parity tests hand in the JAX draws).
+* Data parallelism (a `parallel.DataParallel` record `dp`), as in
+  `train/loop.py`: the backbone's BatchNorms take the whole batch's
+  statistics, both models' gradients and both loss dicts are averaged over
+  the ranks, and `z` and `nll_noise` are drawn for the whole batch on
+  every rank, each keeping its rows. The JAX step instead folds the rank
+  into its key, so its N-way draws differ from its 1-way ones; here an
+  N-way step draws what the 1-way step draws.
 """
 from __future__ import annotations
 
@@ -27,8 +34,9 @@ import torch
 from ..geometry import aa_to_rotmat
 from ..models.discriminator import Discriminator, discriminator_forward
 from ..models.prohmr import ProHMR, ProHMRConfig, ProHMRLossWeights, compute_loss, forward
+from ..parallel.mesh import DataParallel, draw_rows, mean_grads, mean_metrics
 from ..smpl import SMPLModel
-from .loop import fill_missing_grads, trainable_tensors
+from .loop import fill_missing_grads, optimizer_tensors, trainable_tensors
 
 # buffers of the reference layout that training updates: parameter leaves in
 # the JAX package
@@ -53,15 +61,27 @@ def generator_loss(
     smpl_neutral: SMPLModel, smpl_male: SMPLModel, smpl_female: SMPLModel, batch: Dict, *,
     scene_cano: bool = False, generator: Optional[torch.Generator] = None,
     z: Optional[torch.Tensor] = None, nll_noise: Optional[torch.Tensor] = None,
+    dp: Optional[DataParallel] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]:
     """(flow loss + w.adversarial x LSGAN generator loss, {term: value},
     the fakes (body-pose rotmats [B*S, 23, 3, 3], betas [B*S, 10])). The
-    BatchNorm running statistics are updated in place."""
-    out = forward(model, cfg, smpl_neutral, batch, cfg.num_train_samples, generator=generator,
-                  z=z, train=True, scene_cano=scene_cano)
+    BatchNorm running statistics are updated in place. `z` and `nll_noise`
+    are drawn from `generator`, in that order, where not given; with `dp`,
+    `batch` is the rank's block, and the draws are made for the whole batch
+    and the rank's rows kept."""
+    B, S, dev = batch["img"].shape[0], cfg.num_train_samples, batch["img"].device
+    if z is None:
+        z = torch.zeros((B, S, cfg.flow_dim), device=dev)
+        if S > 1:
+            z[:, 1:] = draw_rows(dp, B, lambda n: torch.randn(
+                (n, S - 1, cfg.flow_dim), generator=generator, device=dev))
+    if nll_noise is None:
+        nll_noise = draw_rows(dp, B, lambda n: torch.randn(
+            (n, cfg.flow_dim), generator=generator, device=dev))
+    out = forward(model, cfg, smpl_neutral, batch, S, z=z, train=True, scene_cano=scene_cano,
+                  dp=dp)
     loss, losses = compute_loss(model, cfg, w, smpl_male, smpl_female, batch, out, train=True,
-                                generator=generator, nll_noise=nll_noise)
-    B, S = out.pred_betas.shape[:2]
+                                nll_noise=nll_noise)
     fake = (out.pred_pose_rotmat[:, :, 1:].reshape(B * S, 23, 3, 3),
             out.pred_betas.reshape(B * S, 10))
     loss_adv = (discriminator_forward(disc, *fake) - 1.0).square().sum() / B
@@ -88,11 +108,14 @@ def make_prohmr_train_step(
     cfg: ProHMRConfig, w: ProHMRLossWeights, smpl_neutral: SMPLModel, smpl_male: SMPLModel,
     smpl_female: SMPLModel, optimizer: torch.optim.Optimizer,
     disc_optimizer: torch.optim.Optimizer, *, scene_cano: bool = False,
+    dp: Optional[DataParallel] = None,
 ):
     """step(model, disc, batch, mocap_batch, generator=None, *, z=None,
     nll_noise=None) -> {term: detached value}: the generator's and the
     discriminator's gradients, each from the other's weights before the
-    step, then both AdamW steps, in place."""
+    step, then both AdamW steps, in place. With a data-parallel record
+    `dp`, `batch` and `mocap_batch` are the rank's blocks; both gradients
+    and the terms are averaged over the ranks before the steps."""
 
     def step(model: ProHMR, disc: Discriminator, batch: Dict, mocap_batch: Dict,
              generator: Optional[torch.Generator] = None, **draws) -> Dict[str, torch.Tensor]:
@@ -104,7 +127,7 @@ def make_prohmr_train_step(
         try:
             total, losses, fake = generator_loss(
                 model, disc, cfg, w, smpl_neutral, smpl_male, smpl_female, batch,
-                scene_cano=scene_cano, generator=generator, **draws)
+                scene_cano=scene_cano, generator=generator, dp=dp, **draws)
             total.backward()
         finally:
             disc.requires_grad_(True)
@@ -112,8 +135,9 @@ def make_prohmr_train_step(
         d_total.backward()
         fill_missing_grads(optimizer)
         fill_missing_grads(disc_optimizer)
+        mean_grads(dp, optimizer_tensors(optimizer) + optimizer_tensors(disc_optimizer))
         optimizer.step()
         disc_optimizer.step()
-        return {k: v.detach() for k, v in {**losses, **d_losses}.items()}
+        return mean_metrics(dp, {k: v.detach() for k, v in {**losses, **d_losses}.items()})
 
     return step

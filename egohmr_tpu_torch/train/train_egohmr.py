@@ -2,12 +2,22 @@
 
 The same flags with the same defaults; `--device` (default `cuda`) takes
 the place of `--platform`, and fails without a card: the CLI does not
-carry on on the CPU. One eager step per batch (`train/loop.py`) on one
-device; `--data_parallel` is accepted and must be false when the process
-sees several devices. Checkpoints are the port's own `.pt` files (see
-`utils/checkpoint.py`): `<save_dir>/checkpoints/step_<N>.pt` every
-`--save_step` steps and at the end, `best_model_vis.pt` at the best
-validation error. With `--resume` (default) a run continues from the newest
+carry on on the CPU. One eager step per batch (`train/loop.py`).
+
+Data parallelism runs one process per card under torchrun:
+`torchrun --nproc_per_node=N -m egohmr_tpu_torch.train.train_egohmr ...`
+with `--data_parallel true` (the default). `--batch_size` is the global
+batch and must divide by N. Every rank builds the same global batch
+stream and keeps its rows, the replicas start equal (broadcast from rank
+0) and stay so (the gradients are averaged, the BatchNorm statistics are
+the whole batch's); only rank 0 writes checkpoints, metrics, logs and
+validation, and the ranks meet at a barrier after each save. On resume
+every rank loads the checkpoint. Several visible cards without torchrun,
+or torchrun with `--data_parallel false`, are refused.
+
+Checkpoints are the port's own `.pt` files (see `utils/checkpoint.py`):
+`<save_dir>/checkpoints/step_<N>.pt` every `--save_step` steps and at the
+end, `best_model_vis.pt` at the best validation error. With `--resume` (default) a run continues from the newest
 `step_<N>.pt` at step N+1, with the model, AdamW and the draws' generator as
 they were. Metrics go to `metrics.jsonl`, flags to `params.json`.
 
@@ -49,11 +59,12 @@ from ..models import (
     make_denoise_fn,
     model_outputs,
 )
+from ..parallel import barrier, is_main, replicate, rows, shard_batch, shutdown
 from ..smpl import create as smpl_create
 from ..smpl import make_synthetic_model
 from ..utils.checkpoint import latest_checkpoint, restore_checkpoint, save_checkpoint
-from ..utils.device import resolve_device
-from ..utils.logging import MetricsWriter, get_logger, save_config
+from ..utils.device import resolve_data_parallel
+from ..utils.logging import MetricsWriter, NullWriter, get_logger, null_logger, save_config
 from .loop import TRAINED_BUFFERS, TrainConfig, make_optimizer, make_train_step
 
 
@@ -74,8 +85,9 @@ def parse_args(argv=None):
     p.add_argument("--save_step", type=int, default=2000)
     p.add_argument("--resume", type=b, default=True)
     p.add_argument("--data_parallel", type=b, default=True,
-                   help="accepted for the original's command lines; must be "
-                        "false when the process sees several devices")
+                   help="data parallelism under torchrun (one process per "
+                        "card; --batch_size is the global batch); a no-op in "
+                        "one process on one device")
     p.add_argument("--scene_cano", type=b, default=True)
     p.add_argument("--scene_type", type=str, default="cube",
                    choices=["whole_scene", "cube"])
@@ -160,10 +172,15 @@ def _export(model, path: str, total_steps: int) -> str:
 
 def main(argv=None):
     args = parse_args(argv)
-    device = resolve_device(args.device, args.data_parallel)
-    os.makedirs(args.save_dir, exist_ok=True)
-    logger = get_logger(args.save_dir)
-    save_config(args.save_dir, vars(args))
+    device, dp = resolve_data_parallel(args.device, args.data_parallel,
+                                       "egohmr_tpu_torch.train.train_egohmr")
+    rows(dp, args.batch_size)  # raises unless the world size divides the batch
+    main_rank = is_main(dp)
+    if main_rank:
+        logger = get_logger(args.save_dir)
+        save_config(args.save_dir, vars(args))
+    else:
+        logger = null_logger()
 
     cfg = EgoHMRConfig(
         cond_mask_prob=args.cond_mask_prob,
@@ -210,8 +227,9 @@ def main(argv=None):
             do_augment=args.do_augment, scene_type=args.scene_type,
             scene_cano=args.scene_cano, add_scale=args.add_bbox_scale)
         mean, std = compute_body_rep_stats(ds.global_orient, ds.body_pose)
-        save_stats(os.path.join(args.save_dir, "preprocess_stats", "preprocess_stats.npz"),
-                   mean, std)
+        if main_rank:
+            save_stats(os.path.join(args.save_dir, "preprocess_stats",
+                                    "preprocess_stats.npz"), mean, std)
         stats = BodyRepStats(torch.tensor(mean, device=device), torch.tensor(std, device=device))
 
         def host_batches(start):  # a resumed run starts a new epoch, as in JAX
@@ -249,8 +267,9 @@ def main(argv=None):
             generator.set_state(state["generator"])
             start_step = int(state["step"]) + 1
             logger.info("resumed from %s at step %d", latest, start_step)
+    replicate(dp, model)
 
-    def checkpoint(name: str, step: int) -> None:
+    def save(name: str, step: int) -> None:
         save_checkpoint(os.path.join(ckpt_dir, name), {
             "model": model.state_dict(),
             "trained_buffers": {n: model.get_buffer(n).detach() for n in TRAINED_BUFFERS},
@@ -259,10 +278,16 @@ def main(argv=None):
             "step": step,
         })
 
+    def checkpoint(name: str, step: int) -> None:
+        """Rank 0 writes; every rank waits for the file."""
+        if main_rank:
+            save(name, step)
+        barrier(dp)
+
     steps = {use: make_train_step(cfg, replace(tcfg, use_collision_loss=use), weights, schedule,
-                                  stats, smpl_n, smpl_m, smpl_f, optimizer)
+                                  stats, smpl_n, smpl_m, smpl_f, optimizer, dp=dp)
              for use in (False, True)}
-    writer = MetricsWriter(args.save_dir)
+    writer = MetricsWriter(args.save_dir) if main_rank else NullWriter()
 
     # ---------------- validation: the visible-3D-joint error, on which the
     # best model is kept
@@ -303,7 +328,9 @@ def main(argv=None):
         return err_sum / max(vis_num, 1.0)
 
     best_val = float("inf")
-    batch_iter = prefetch_to_device(host_batches(start_step), size=2, device=device)
+    # every rank reads the global batch and keeps its rows
+    batch_iter = prefetch_to_device((shard_batch(dp, b) for b in host_batches(start_step)),
+                                    size=2, device=device)
     t0 = time.time()
     for step in range(start_step, args.num_steps):
         batch = next(batch_iter)
@@ -315,22 +342,27 @@ def main(argv=None):
             logger.info("step %d loss %.4f (%.2f s/step)", step, m["loss"],
                         (time.time() - t0) / max(step - start_step + 1, 1))
         if val_batches and step % args.val_step == 0 and step > start_step:
-            val_err = run_validation(
-                torch.Generator(device=device).manual_seed(args.seed * 1_000_003 + step))
-            writer.write(step, {"val_keypoints_3d_vis": val_err})
-            logger.info("step %d val vis-3d-joint err %.4f (best %.4f)", step, val_err, best_val)
-            if val_err < best_val:
-                best_val = val_err
-                checkpoint("best_model_vis", step)
+            # the replicas are equal: rank 0 validates the whole split alone
+            if main_rank:
+                val_err = run_validation(
+                    torch.Generator(device=device).manual_seed(args.seed * 1_000_003 + step))
+                writer.write(step, {"val_keypoints_3d_vis": val_err})
+                logger.info("step %d val vis-3d-joint err %.4f (best %.4f)", step, val_err,
+                            best_val)
+                if val_err < best_val:
+                    best_val = val_err
+                    save("best_model_vis", step)
+            barrier(dp)
         if step % args.save_step == 0 and step > start_step:
             checkpoint(f"step_{step}", step)
     if start_step < args.num_steps:
         checkpoint(f"step_{args.num_steps - 1}", args.num_steps - 1)
-    if args.export_torch:
+    if args.export_torch and main_rank:
         written = _export(model, args.export_torch, args.num_steps)
         logger.info("exported torch-layout checkpoint to %s", written)
     writer.close()
     logger.info("done")
+    shutdown(dp)
 
 
 if __name__ == "__main__":

@@ -2,11 +2,18 @@
 egohmr_tpu/train/train_prohmr.py).
 
 EgoBody batches for the generator and CMU-mocap batches for the
-discriminator, one eager G+D step each (`train/prohmr_loop.py`) on one
-device, in float32. The same flags with the same defaults; `--device`
-(default `cuda`) takes the place of `--platform` and fails without a card;
-`--data_parallel` is accepted and must be false when the process sees
-several devices.
+discriminator, one eager G+D step each (`train/prohmr_loop.py`), in
+float32. The same flags with the same defaults; `--device` (default
+`cuda`) takes the place of `--platform` and fails without a card.
+
+Data parallelism runs one process per card under torchrun, as the stage-2
+CLI does: `torchrun --nproc_per_node=N -m
+egohmr_tpu_torch.train.train_prohmr ...` with `--data_parallel true` (the
+default) and a `--batch_size` (global) that divides by N. Every rank runs
+the ActNorm init on the same global batch, so the replicas start equal,
+and then keeps its rows of each generator and mocap batch; only rank 0
+writes checkpoints, metrics and logs, and on resume every rank loads the
+checkpoint, the mocap stream's state included.
 
 As in the JAX package, the first batch sets the flow's ActNorms
 (`models.prohmr.initialize`) and training starts on the next one, and the
@@ -36,15 +43,16 @@ import time
 import numpy as np
 import torch
 
-from ..data import MoCapDataset, finalize_batch, synthetic_batch, to_torch
+from ..data import MoCapDataset, finalize_batch, synthetic_batch, to_device_batch, to_torch
 from ..data.prefetch import prefetch_to_device
 from ..models import Discriminator, init_discriminator_
 from ..models.prohmr import ProHMR, ProHMRConfig, ProHMRLossWeights, init_random_, initialize
+from ..parallel import barrier, is_main, replicate, rows, shard_batch, shutdown
 from ..smpl import create as smpl_create
 from ..smpl import make_synthetic_model
 from ..utils.checkpoint import latest_checkpoint, restore_checkpoint, save_checkpoint
-from ..utils.device import resolve_device
-from ..utils.logging import MetricsWriter, get_logger, save_config
+from ..utils.device import resolve_data_parallel
+from ..utils.logging import MetricsWriter, NullWriter, get_logger, null_logger, save_config
 from .prohmr_loop import make_optimizers, make_prohmr_train_step
 from .train_egohmr import _load_backbone, _read_state_dict
 
@@ -64,8 +72,9 @@ def parse_args(argv=None):
     p.add_argument("--save_step", type=int, default=2000)
     p.add_argument("--resume", type=b, default=True)
     p.add_argument("--data_parallel", type=b, default=True,
-                   help="accepted for the original's command lines; must be "
-                        "false when the process sees several devices")
+                   help="data parallelism under torchrun (one process per "
+                        "card; --batch_size is the global batch); a no-op in "
+                        "one process on one device")
     p.add_argument("--scene_cano", type=b, default=False,
                    help="the whole scene without canonicalisation, as the "
                         "original trains by default")
@@ -116,10 +125,15 @@ def egobody_batches(ds, batch_size: int, first: int):
 
 def main(argv=None):
     args = parse_args(argv)
-    device = resolve_device(args.device, args.data_parallel)
-    os.makedirs(args.save_dir, exist_ok=True)
-    logger = get_logger(args.save_dir, "prohmr")
-    save_config(args.save_dir, vars(args))
+    device, dp = resolve_data_parallel(args.device, args.data_parallel,
+                                       "egohmr_tpu_torch.train.train_prohmr")
+    rows(dp, args.batch_size)  # raises unless the world size divides the batch
+    main_rank = is_main(dp)
+    if main_rank:
+        logger = get_logger(args.save_dir, "prohmr")
+        save_config(args.save_dir, vars(args))
+    else:
+        logger = null_logger()
 
     cfg = ProHMRConfig(with_focal_length=args.with_focal_length,
                        with_cam_center=args.with_cam_center, with_bbox_info=args.with_bbox_info)
@@ -185,26 +199,37 @@ def main(argv=None):
         _set_rng_state(rng_np, state["mocap_rng"])
         start_step = int(state["step"]) + 1
         logger.info("resumed from %s at step %d", latest, start_step)
-        batch_iter = prefetch_to_device(host_batches(start_step + 1), size=2, device=device)
+        host = host_batches(start_step + 1)
     else:
-        batch_iter = prefetch_to_device(host_batches(0), size=2, device=device)
-        # ActNorm's data-dependent init on the first batch
-        initialize(model, cfg, next(batch_iter), scene_cano=args.scene_cano)
+        host = host_batches(0)
+        # ActNorm's data-dependent init on the first batch, the whole of it
+        # on every rank
+        initialize(model, cfg, to_device_batch(next(host), device), scene_cano=args.scene_cano)
+    replicate(dp, model)
+    replicate(dp, disc)
+    # every rank reads the global batch and keeps its rows
+    batch_iter = prefetch_to_device((shard_batch(dp, b) for b in host), size=2, device=device)
 
     def checkpoint(step: int) -> None:
-        save_checkpoint(os.path.join(ckpt_dir, f"step_{step}"), {
-            "model": model.state_dict(), "discriminator": disc.state_dict(),
-            "optimizer": optimizer.state_dict(), "disc_optimizer": disc_optimizer.state_dict(),
-            "generator": generator.get_state(), "mocap_rng": _rng_state(rng_np), "step": step,
-        })
+        """Rank 0 writes; every rank waits for the file."""
+        if main_rank:
+            save_checkpoint(os.path.join(ckpt_dir, f"step_{step}"), {
+                "model": model.state_dict(), "discriminator": disc.state_dict(),
+                "optimizer": optimizer.state_dict(),
+                "disc_optimizer": disc_optimizer.state_dict(),
+                "generator": generator.get_state(), "mocap_rng": _rng_state(rng_np),
+                "step": step,
+            })
+        barrier(dp)
 
     step_fn = make_prohmr_train_step(cfg, weights, smpl_n, smpl_m, smpl_f, optimizer,
-                                     disc_optimizer, scene_cano=args.scene_cano)
-    writer = MetricsWriter(args.save_dir)
+                                     disc_optimizer, scene_cano=args.scene_cano, dp=dp)
+    writer = MetricsWriter(args.save_dir) if main_rank else NullWriter()
     t0 = time.time()
     for step in range(start_step, args.num_steps):
         batch = next(batch_iter)
-        metrics = step_fn(model, disc, batch, to_torch(mocap_batch(), device), generator)
+        metrics = step_fn(model, disc, batch, to_torch(shard_batch(dp, mocap_batch()), device),
+                          generator)
         if step % args.log_step == 0 or step == args.num_steps - 1:
             m = {k: float(v) for k, v in metrics.items()}
             writer.write(step, m)
@@ -216,6 +241,7 @@ def main(argv=None):
         checkpoint(args.num_steps - 1)
     writer.close()
     logger.info("done")
+    shutdown(dp)
 
 
 if __name__ == "__main__":

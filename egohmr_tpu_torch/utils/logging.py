@@ -61,3 +61,25 @@ class MetricsWriter:
         self._f.close()
         if self._tb is not None:
             self._tb.close()
+
+
+class NullWriter:
+    """`MetricsWriter`'s interface, writing nothing: the writer of a
+    data-parallel rank other than 0."""
+
+    def write(self, step: int, scalars: Dict[str, float]) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def null_logger(name: str = "egohmr_tpu_torch.rank") -> logging.Logger:
+    """A logger that writes nothing: the logger of a data-parallel rank
+    other than 0."""
+    logger = logging.getLogger(name)
+    for h in list(logger.handlers):
+        logger.removeHandler(h)
+    logger.addHandler(logging.NullHandler())
+    logger.propagate = False
+    return logger

@@ -66,7 +66,7 @@ def test_ddim_sample_loop_matches_jax(eta, monkeypatch):
     x_T = np.random.RandomState(1).randn(4, 16).astype(np.float32)
     monkeypatch.setattr(jax.random, "normal",
                         lambda key, shape, dtype=jnp.float32: jnp.zeros(shape, dtype))
-    monkeypatch.setattr(tsampler, "_step_noise", lambda x, g: torch.zeros_like(x))
+    monkeypatch.setattr(tsampler, "_step_noise", lambda x, g, shard: torch.zeros_like(x))
     for respacing in ("ddim5", ""):
         want, _ = j_sample_loop(j_make_schedule(50, "cosine", respacing), den.jax_fn(),
                                 jax.random.PRNGKey(0), (4, 16), sampler="ddim",
@@ -95,7 +95,7 @@ def zero_noise(monkeypatch):
     so per-step noise cannot match draw for draw: both are set to zero."""
     monkeypatch.setattr(jax.random, "normal",
                         lambda key, shape, dtype=jnp.float32: jnp.zeros(shape, dtype))
-    monkeypatch.setattr(tsampler, "_step_noise", lambda x, g: torch.zeros_like(x))
+    monkeypatch.setattr(tsampler, "_step_noise", lambda x, g, shard: torch.zeros_like(x))
 
 
 def _run_both(respacing, x_T, *, gw=None, jcfg=JGuidanceConfig(), tcfg=GuidanceConfig(), **kw):

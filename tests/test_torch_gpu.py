@@ -630,3 +630,109 @@ def test_k2_at_the_distillation_label_shapes(cuda, B, V):
     b = sample_labeled_batch(torch.Generator(cuda).manual_seed(B), body, batch_bodies=B,
                              points_per_body=1024, label_mode="proximity")
     _assert_k2_agrees(b.points.contiguous(), b.smpl_out.vertices.contiguous())
+
+
+def _tiny_stage2(device, **overrides):
+    from egohmr_tpu_torch.models import EgoHMR, EgoHMRConfig
+
+    widths = dict(resnet_layers=18, img_feat_dim=512, scene_feat_dim=32, pointnet_hidden_dim=32,
+                  transl_embed_dim=16, timestep_embed_dim=32, input_process_dim=32,
+                  gcn_hid_dim=16, gcn_layers=1)
+    cfg = EgoHMRConfig(**{**widths, **overrides})
+    return cfg, init_random_(EgoHMR(cfg), seed=0, training=True).state_dict()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mixed_precision", [False, True], ids=["f32", "bf16-mixed"])
+def test_dp_step_with_nccl_at_world_1_is_the_plain_step(cuda, tmp_path, mixed_precision):
+    """Phase 10 (a) at a tiny width: the stage-2 step through the
+    data-parallel code on an NCCL group of one rank (62 BatchNorm
+    all-reduces at full width, here 23, and the gradient all-reduce, each
+    the identity) against the plain step on the same draws, cuDNN
+    deterministic: the loss, every gradient and the BatchNorm statistics
+    bit for bit."""
+    import torch.distributed as dist
+
+    from egohmr_tpu_torch.data import synthetic_batch
+    from egohmr_tpu_torch.diffusion import make_schedule
+    from egohmr_tpu_torch.models import BodyRepStats, EgoHMR, LossWeights
+    from egohmr_tpu_torch.parallel import init_data_parallel
+    from egohmr_tpu_torch.smpl import make_synthetic_model
+    from egohmr_tpu_torch.train import (TrainConfig, make_optimizer, make_train_step,
+                                        trainable_tensors)
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, init = _tiny_stage2(cuda, cond_mask_prob=0.5)
+    batch = synthetic_batch(4, num_scene_points=64, img_size=64, seed=3, device=cuda)
+    g = torch.Generator().manual_seed(5)
+    draws = {"t": torch.randint(0, 50, (4,), generator=g).to(cuda),
+             "noise": torch.randn(4, 144, generator=g).to(cuda),
+             "drop": torch.tensor([True, False, True, False], device=cuda)}
+    smpl = make_synthetic_model(num_vertices=64, device=cuda)
+    stats = BodyRepStats(torch.zeros(144, device=cuda), torch.ones(144, device=cuda))
+    schedule = make_schedule(50, "cosine", "").to(cuda)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0, world_size=1)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        dp = init_data_parallel("cuda")
+        assert dp is not None and dp.size == 1 and dist.get_backend() == "nccl"
+        runs = []
+        for rec in (None, dp):
+            model = EgoHMR(cfg)
+            model.load_state_dict(init)
+            model = model.to(cuda)
+            tcfg = TrainConfig(mixed_precision=mixed_precision)
+            step = make_train_step(cfg, tcfg, LossWeights(), schedule, stats, smpl, smpl, smpl,
+                                   make_optimizer(model, tcfg), dp=rec)
+            terms = step(model, batch, **draws)
+            runs.append((float(terms["loss"]),
+                         {k: t.grad.clone() for k, t in trainable_tensors(model).items()},
+                         {k: v.clone() for k, v in model.state_dict().items() if "running" in k}))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        dist.destroy_process_group()
+    (loss_a, grads_a, bn_a), (loss_b, grads_b, bn_b) = runs
+    assert loss_a == loss_b
+    assert all(torch.equal(grads_a[k], v) for k, v in grads_b.items())
+    assert all(torch.equal(bn_a[k], v) for k, v in bn_b.items())
+
+
+@pytest.mark.gpu
+def test_predictor_over_two_replicas_on_one_card(cuda):
+    """Phase 10 (d) at a tiny width: `Predictor(device=[cuda, cuda])`, two
+    replicas on the one card each serving half of every request, against
+    the one-device `Predictor` on the same seed, unguided DDIM-5: f32 plain
+    within rtol 2e-4, atol 2e-4 (the JAX package's serving bars); bf16 with
+    K1 within a mean abs of 0.05 of pred_keypoints_3d, K1 once per replica.
+    The scene encoder is K1's width, H = 256."""
+    import copy
+
+    from egohmr_tpu_torch.data import synthetic_batch
+    from egohmr_tpu_torch.diffusion import make_schedule
+    from egohmr_tpu_torch.models import BodyRepStats, EgoHMR
+    from egohmr_tpu_torch.serving import Predictor
+    from egohmr_tpu_torch.smpl import make_synthetic_model
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, _ = _tiny_stage2(cuda, pointnet_hidden_dim=256)
+    model = init_random_(EgoHMR(cfg), seed=0).eval()
+    smpl = make_synthetic_model(num_vertices=64)
+    stats = BodyRepStats(torch.zeros(144), torch.ones(144))
+    schedule = make_schedule(50, "cosine", "ddim5")
+    batch = synthetic_batch(8, num_scene_points=2048, img_size=64, seed=2)
+    for kw in (dict(bf16=False, pointnet_impl="xla"), dict(bf16=True, pointnet_impl="fused")):
+        outs = {}
+        for n in (1, 2):
+            pred = Predictor(copy.deepcopy(model), cfg, smpl, stats, schedule,
+                             device=cuda if n == 1 else [cuda, cuda], batch_size=8, **kw)
+            before = k1.launches
+            outs[n] = pred(batch, seed=3)
+            assert k1.launches - before == (n if kw["bf16"] else 0)
+        for k in outs[1]:
+            if kw["bf16"]:
+                continue
+            torch.testing.assert_close(torch.tensor(outs[2][k]), torch.tensor(outs[1][k]),
+                                       rtol=2e-4, atol=2e-4, msg=k)
+        gap = abs(outs[2]["pred_keypoints_3d"] - outs[1]["pred_keypoints_3d"]).mean()
+        assert gap < 0.05

@@ -207,7 +207,7 @@ def test_guided_sampling_with_the_real_guidance_matches_jax(setup, sampler, resp
 
     monkeypatch.setattr(jax.random, "normal",
                         lambda key, shape, dtype=jnp.float32: jnp.zeros(shape, dtype))
-    monkeypatch.setattr(tsampler, "_step_noise", lambda x, g: torch.zeros_like(x))
+    monkeypatch.setattr(tsampler, "_step_noise", lambda x, g, shard: torch.zeros_like(x))
     jfn, tfn = _both(setup)
     x = setup[2]
     W = (np.random.RandomState(5).randn(144, 144) * 0.05).astype(np.float32)

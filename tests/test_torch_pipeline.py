@@ -122,7 +122,7 @@ def test_guided_sample_bodies_f32_matches_jax(setup, monkeypatch, sampler, respa
     x_T = np.random.RandomState(21).randn(2 * S, 144).astype(np.float32)
     weights = dict(cond_grad_weight=60.0, ddim_scale=30.0)
     monkeypatch.setattr(jax.random, "normal", _first_then_zeros(x_T))
-    monkeypatch.setattr(tsampler, "_step_noise", lambda x, g: torch.zeros_like(x))
+    monkeypatch.setattr(tsampler, "_step_noise", lambda x, g, shard: torch.zeros_like(x))
     jout, _ = j_sample_bodies(jp, jcfg, jsmpl, jstats, j_make_schedule(50, "cosine", respacing),
                               to_jax(batch), jax.random.PRNGKey(0), S, sampler=sampler,
                               with_guidance=True, guidance=JGuidanceConfig(**weights))
@@ -248,10 +248,10 @@ def test_map_batches_in_order(predictor):
 
 
 def test_port_never_imports_jax():
-    """No file under the package (its `tools/`, `viz/`, `utils/`, `flow/`
-    and `preprocess/` included, and stage 1's model, discriminator, training
-    step and CLIs, the learned collision nets, their converters and CLIs)
-    and not chip_smoke.py imports JAX or egohmr_tpu, and
+    """No file under the package (its `tools/`, `viz/`, `utils/`, `flow/`,
+    `parallel/` and `preprocess/` included, and stage 1's model,
+    discriminator, training step and CLIs, the learned collision nets, their
+    converters and CLIs) and not chip_smoke.py imports JAX or egohmr_tpu, and
     importing the package's entry points and running the CPU serving path
     leaves JAX unloaded."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -267,7 +267,8 @@ def test_port_never_imports_jax():
             "preprocess/scene.py", "collision/neural_occupancy.py", "collision/neural_sdf.py",
             "interop/__init__.py", "interop/coap_convert.py", "interop/volsmpl_convert.py",
             "eval/test_egohmr_volsmpl.py", "train/distill_occupancy.py",
-            "train/distill_sdf.py"} <= walked
+            "train/distill_sdf.py", "parallel/__init__.py", "parallel/mesh.py",
+            "utils/device.py"} <= walked
     for f in sources:
         for node in ast.walk(ast.parse(open(f).read())):
             names = ([a.name for a in node.names] if isinstance(node, ast.Import)
@@ -294,6 +295,7 @@ def test_port_never_imports_jax():
         "import egohmr_tpu_torch.viz, egohmr_tpu_torch.utils.checkpoint, egohmr_tpu_torch.native\n"
         "import egohmr_tpu_torch.eval.test_prohmr, egohmr_tpu_torch.train.train_prohmr\n"
         "import egohmr_tpu_torch.preprocess.scene, egohmr_tpu_torch.flow\n"
+        "import egohmr_tpu_torch.parallel, egohmr_tpu_torch.utils.device\n"
         "assert 'jax' not in sys.modules and 'egohmr_tpu' not in sys.modules\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
