@@ -91,6 +91,18 @@ Phases (any failure exits non-zero):
                on the card against one device, each K1 call held likewise;
                the step's, request's and gradient all-reduce's times. Two
                ranks share one card: no scaling figure
+ 11. tp      — tensor parallelism at full width: `Predictor` over a 2 x 2
+               data x model grid, every shard on the one card, against the
+               one-device `Predictor` at batch 64, DDIM-5, on phase 5's
+               closed body and penetrated scene: unguided f32 and guided f32
+               (weights a tenth of phase 5's raised ones) within rtol/atol
+               2e-4, unguided bf16 within a mean abs of 0.05; K1 never
+               launched on the grid (switched to the split plain encoder),
+               K2 once per guided step on each data row, each call held to
+               its plain version; host-clock and CUDA-event ms per request;
+               at phase 5's raised weights, the grid's and the flat
+               2-replica split's gaps from one device, printed. One card:
+               no latency claim
 Before the last line come a JSON object with one entry per kernel and the
 card's name and power limit; the last line is {"ok": true, "device":
 {...}}. Nothing runs without a GPU.
@@ -662,6 +674,18 @@ def closed_body_model(rings: int = 82, slices: int = 84):
         j_regressor=torch.tensor(j_reg))
 
 
+def penetrated(batch, out, leg, n_in: int = 1024):
+    """The request with its first `n_in` scene points moved into the bbox of
+    the legs (the vertices `leg`) of `out`'s bodies (canonical frame +
+    translation)."""
+    v = out["pred_vertices"][:, 0][:, leg]
+    lo, hi = v.min(1, keepdims=True), v.max(1, keepdims=True)
+    u = np.random.RandomState(0).rand(v.shape[0], n_in, 3).astype(np.float32)
+    scene = batch["scene_pcd_verts_full"].copy()
+    scene[:, :n_in] = lo + (hi - lo) * u + batch["smpl_params"]["transl"][:, None]
+    return {**batch, "scene_pcd_verts_full": scene}
+
+
 # guidance weights for the check that guidance lowers collisions: the
 # reference's, times the batch (the loss is a batch mean, so each body feels
 # 1/B of its own gradient), times 1e5 (see `phase_guided`)
@@ -706,16 +730,6 @@ def phase_guided(cfg) -> dict:
             if out[k].shape != shape or not np.isfinite(out[k]).all():
                 fail(f"{k}: shape {out[k].shape} (want {shape}) or non-finite values")
 
-    def penetrated(batch, out, n_in=1024):
-        """The request with its first `n_in` scene points moved into the
-        bbox of the legs of `out`'s bodies (canonical frame + translation)."""
-        v = out["pred_vertices"][:, 0][:, leg]
-        lo, hi = v.min(1, keepdims=True), v.max(1, keepdims=True)
-        u = np.random.RandomState(0).rand(v.shape[0], n_in, 3).astype(np.float32)
-        scene = batch["scene_pcd_verts_full"].copy()
-        scene[:, :n_in] = lo + (hi - lo) * u + batch["smpl_params"]["transl"][:, None]
-        return {**batch, "scene_pcd_verts_full": scene}
-
     def losses(out, batch):
         """Per-body collision loss of the served meshes against the 4096
         scene points nearest the body's origin, the guidance's own set:
@@ -742,7 +756,7 @@ def phase_guided(cfg) -> dict:
         # into the bbox of that body's legs
         free = predictor(sampler, schedule, B)
         batch = synthetic_batch(B, num_scene_points=P_FULL, seed=20)
-        batch = penetrated(batch, free(batch, seed=1))
+        batch = penetrated(batch, free(batch, seed=1), leg)
         pred = predictor(sampler, schedule, B, with_guidance=True)
         pred(batch)  # warm-up: cuDNN algorithm selection, allocator growth
         served.append((pred, batch, free))
@@ -838,7 +852,7 @@ def breakdown(name: str, pred, batch, n_guided: int) -> None:
                                          make_guidance_fn, model_outputs)
     from egohmr_tpu_torch.smpl import lbs, vertex_normals
 
-    (model, smpl, stats, _), cfg = pred._replicas[0], pred.cfg
+    (model, smpl, stats, _, _), cfg = pred._replicas[0], pred.cfg
     dev_batch = to_torch(batch, pred.device)
     dev_batch["img"] = dev_batch["img"].to(torch.bfloat16)
     B = dev_batch["img"].shape[0]
@@ -2886,6 +2900,166 @@ def phase_parallel(cfg) -> dict:
     counts["k2_collision_shape"] = ranks[0]["k2_collision_shape"]
     return counts
 
+# phase 11: a dp x tp grid of devices on the one card, every shard on it
+TP_DP, TP_TP = 2, 2
+TP_REQUESTS = 3  # timed requests a run, after one warm-up
+TP_F32_BARS = dict(rtol=2e-4, atol=2e-4)  # phase 10 (d)'s
+# (c)'s guidance weight: the reference's times the batch times 1e4. At
+# phase 5's 1e5 the guided step amplifies the f32 rounding of ANY split of
+# the work beyond (a)'s bar, the flat two-replica Predictor's (no model
+# split) as much as the grid's: this phase prints both. At 1e4 the grid
+# holds the bar and the guidance still moves the vertices by millimetres.
+TP_GUIDED = dict(ddim_scale=1.0 * 64 * 1e4)
+TP_RUNS = {  # name: (Predictor options, grid's K2 launches a request)
+    "(a) unguided, f32": (dict(bf16=False, pointnet_impl="xla"), 0),
+    "(b) unguided, bf16": (dict(bf16=True, pointnet_impl="fused"), 0),
+    "(c) guided, f32, weights x1e4": (dict(bf16=False, pointnet_impl="xla", with_guidance=True,
+                                           guidance_kw=TP_GUIDED), 4 * TP_DP),
+}
+
+
+def phase_tp(cfg, dev=None) -> dict:
+    """Phase 11: tensor parallelism at full width. `Predictor` over a 2 x 2
+    grid, every shard on the one card, against the one-device `Predictor`
+    on the same seed, batch 64, DDIM-5, on phase 5's closed body and a
+    scene that its unguided legs penetrate: (a) unguided f32 (TF32 off)
+    within rtol/atol 2e-4, (b) unguided bf16 (the grid's K1 switched to the
+    split plain encoder, the one device at its K1 default) within a mean
+    abs of 0.05 of pred_keypoints_3d, (c) guided f32 at `TP_GUIDED` within
+    (a)'s bar, and apart from (a)'s bodies by more than it; then, printed
+    only, the grid and the flat two-replica `Predictor` against one device
+    at phase 5's raised weights, where the guided step amplifies any
+    split's rounding.
+    In the grid's requests K1 launches never and K2 once per guided step on
+    each data row, each call held to its plain version on its inputs.
+    Host-clock and CUDA-event ms per request, grid and one device; one card
+    cannot show the split's gain."""
+    import copy
+
+    from egohmr_tpu_torch.collision import knn as k2
+    from egohmr_tpu_torch.data import synthetic_batch
+    from egohmr_tpu_torch.diffusion import GuidanceConfig, make_schedule
+    from egohmr_tpu_torch.geometry import rotmat_to_rot6d
+    from egohmr_tpu_torch.models import BodyRepStats
+    from egohmr_tpu_torch.nn import pointnet_fused as k1
+    from egohmr_tpu_torch.parallel import make_dp_tp_grid
+    from egohmr_tpu_torch.serving import MESH_OUTPUT_KEYS, Predictor
+
+    t_phase = time.perf_counter()
+    dev = dev or torch.device("cuda", 0)
+    grid = make_dp_tp_grid(TP_DP, TP_TP, [dev] * (TP_DP * TP_TP))
+    model = init_random_s2(cfg).eval()
+    smpl = closed_body_model()
+    leg = np.isin(smpl.lbs_weights.numpy().argmax(1), LEG_JOINTS)
+    rest = rotmat_to_rot6d(torch.eye(3).expand(24, 3, 3)).reshape(144)
+    stats = BodyRepStats(rest, torch.full((144,), 0.2))
+    schedule = make_schedule(50, "cosine", "ddim5")
+
+    def predictor(device, guidance_kw=None, **kw):
+        if guidance_kw is not None:
+            kw["guidance"] = GuidanceConfig(**guidance_kw)
+        return Predictor(copy.deepcopy(model), cfg, smpl, stats, schedule, device=device,
+                         batch_size=B_TIME, num_samples=1, sampler="ddim",
+                         output_keys=MESH_OUTPUT_KEYS, **kw)
+
+    free = predictor(dev)
+    batch = synthetic_batch(B_TIME, num_scene_points=P_FULL, seed=20)
+    batch = penetrated(batch, free(batch, seed=1), leg)
+    del free
+
+    def serve(pred):
+        """One warm-up, then TP_REQUESTS requests: (last output, median
+        host-clock ms, median CUDA-event ms)."""
+        pred(batch, seed=1)
+        host, event = [], []
+        for _ in range(TP_REQUESTS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            start.record()
+            out = pred(batch, seed=1)
+            end.record()
+            end.synchronize()
+            host.append((time.perf_counter() - t) * 1e3)
+            event.append(start.elapsed_time(end))
+        return out, float(np.median(host)), float(np.median(event))
+
+    res, outs, counts = {"k1": 0, "k2": 0}, {}, []
+    for name, (kw, want_k2) in TP_RUNS.items():
+        one, one_host, one_event = serve(predictor(dev, **kw))
+        torch.cuda.empty_cache()
+        pred = predictor(grid, **kw)
+        placed = pred._replicas[0][-1]
+        if pred.cfg.pointnet_impl != "xla" or placed is None:
+            fail(f"{name}: the grid runs pointnet_impl {pred.cfg.pointnet_impl!r}, placement "
+                 f"{placed}")
+        w = "scene_enc.block_1.fc_0.weight"
+        shapes = [tuple(sh[w].shape) for sh in placed.shards]
+        if placed.module.get_parameter(w).numel() or len(set(shapes)) != 1:
+            fail(f"{name}: {w} is not cut into {TP_TP} shards on the grid: {shapes}")
+        with kernel_calls() as seen:
+            k1.launches = k2.launches = 0  # main path starts: count launches from here
+            grid_out, grid_host, grid_event = serve(pred)
+            d1, d2 = k1.launches, k2.launches  # main path ends
+        n_req = TP_REQUESTS + 1
+        if d1 or len(seen["k1"]) or d2 != want_k2 * n_req or len(seen["k2"]) != d2:
+            fail(f"{name}: on the grid K1 launched {d1} times (want 0), K2 {d2} (want "
+                 f"{want_k2 * n_req}: {want_k2 // TP_DP} guided steps on each of {TP_DP} data "
+                 f"rows, {n_req} requests), {len(seen['k2'])} K2 calls recorded")
+        res["k2"] += d2
+        if d2:
+            counts.append(hold_kernel_calls(seen, f"{name}, {TP_DP}x{TP_TP} grid"))
+        del seen, pred
+        torch.cuda.empty_cache()
+        for k in one:
+            if grid_out[k].shape != one[k].shape or not np.isfinite(grid_out[k]).all():
+                fail(f"{name}: {k} shape {grid_out[k].shape} (want {one[k].shape}) or non-finite")
+        gap = max(float(np.abs(grid_out[k] - one[k]).max()) for k in one)
+        mean_gap = float(np.mean(np.abs(grid_out["pred_keypoints_3d"] - one["pred_keypoints_3d"])))
+        if kw["bf16"]:
+            ok, bar = mean_gap < 0.05, "mean abs of pred_keypoints_3d < 0.05"
+        else:
+            ok = all(np.allclose(grid_out[k], one[k], **TP_F32_BARS) for k in one)
+            bar = "rtol 2e-4, atol 2e-4"
+        log("tp", f"{name}, batch {B_TIME}, DDIM-5, {TP_DP}x{TP_TP} grid on one card "
+                  f"({w} in shards of {shapes[0]}) against 1 device: max |diff| {gap:.3e}, "
+                  f"mean |diff| pred_keypoints_3d {mean_gap:.3e} ({bar}); K1 {d1}, K2 {d2} "
+                  f"launches in {n_req} grid requests; request ms, median of {TP_REQUESTS}, "
+                  f"host clock / CUDA events: grid {grid_host:.1f} / {grid_event:.1f}, 1 device "
+                  f"{one_host:.1f} / {one_event:.1f}")
+        if not ok:
+            fail(f"{name}: the grid's bodies stray from one device's")
+        res[name] = {"grid host ms": grid_host, "grid event ms": grid_event,
+                     "1 device host ms": one_host, "1 device event ms": one_event,
+                     "max abs diff": gap, "mean abs diff kp3d": mean_gap, "k2": d2}
+        outs[name] = grid_out
+    a, c = outs["(a) unguided, f32"], outs["(c) guided, f32, weights x1e4"]
+    moved = float(np.abs(c["pred_vertices"] - a["pred_vertices"]).max())
+    apart = not all(np.allclose(c[k], a[k], **TP_F32_BARS) for k in a)
+    log("tp", f"(c) against (a) on the grid: vertices moved by up to {moved:.3e} m "
+              f"({'beyond' if apart else 'WITHIN'} rtol/atol 2e-4)")
+    if not apart:
+        fail("(c): the guidance did not move the grid's bodies beyond the bar")
+    raised = dict(bf16=False, pointnet_impl="xla", with_guidance=True,
+                  guidance_kw=RAISED["ddim"])
+    one = predictor(dev, **raised)(batch, seed=1)
+    gaps = {}
+    for tag, device in (("grid", grid), ("flat 2 replicas", [dev] * TP_DP)):
+        out = predictor(device, **raised)(batch, seed=1)
+        gaps[tag] = max(float(np.abs(out[k] - one[k]).max()) for k in one)
+        torch.cuda.empty_cache()
+    log("tp", f"guided f32 at phase 5's raised weights {RAISED['ddim']}, against 1 device: "
+              f"{TP_DP}x{TP_TP} grid max |diff| {gaps['grid']:.3e}, flat {TP_DP} replicas (no "
+              f"model split) {gaps['flat 2 replicas']:.3e}: the guided step amplifies any "
+              "split's rounding there (printed, not held to a bar)")
+    for line in counts:
+        log("tp", line)
+    log("tp", "one card holds every shard: no latency claim")
+    log("tp", f"phase 11 in {time.perf_counter() - t_phase:.1f} s")
+    log("tp", json.dumps({k: v for k, v in res.items() if isinstance(v, dict)}))
+    return res
+
 
 def main() -> None:
     smi = phase_device()
@@ -2901,19 +3075,22 @@ def main() -> None:
     stage1 = phase_stage1()
     learned = phase_learned(cfg)
     parallel = phase_parallel(cfg)
+    tensor_parallel = phase_tp(cfg)
     # launches: over the main paths, each counted from 0 just before it (K3's
     # main path is the probe's own entry point, counted in its phase)
     kernels[0].update(launches=(unguided + guided["k1"] + evaluated["k1"] + trained["k1"]
                                 + stage1["launches"] + stage1["train_launches"] + learned["k1"]
-                                + parallel["k1"]),
+                                + parallel["k1"] + tensor_parallel["k1"]),
                       launches_learned=learned["k1"], launches_parallel=parallel["k1"],
+                      launches_tp=tensor_parallel["k1"],
                       launches_unguided=unguided, launches_guided=guided["k1"],
                       launches_eval=evaluated["k1"], launches_train=trained["k1"],
                       launches_stage1=stage1["launches"],
                       launches_stage1_train=stage1["train_launches"], stage1=stage1["k1"])
     kernels[1].update(launches=(guided["k2"] + evaluated["k2"] + trained["k2"] + learned["k2"]
-                                + parallel["k2"]),
+                                + parallel["k2"] + tensor_parallel["k2"]),
                       launches_learned=learned["k2"], launches_parallel=parallel["k2"],
+                      launches_tp=tensor_parallel["k2"],
                       parallel_collision_shape=parallel["k2_collision_shape"],
                       distill_label_shapes=learned["k2_label_shapes"],
                       launches_unguided=0, launches_guided=guided["k2"],

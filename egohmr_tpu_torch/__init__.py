@@ -10,7 +10,9 @@ GAN training CLI `train.train_prohmr`), the learned collision backends
 (the distilled occupancy and signed-distance nets of `collision`, their
 distillation CLIs `train.distill_occupancy` and `train.distill_sdf`, the
 COAP/VolumetricSMPL converters of `interop`, and `eval.test_egohmr_volsmpl`),
-the scene preprocessing (`preprocess`) and the tensor-core rate probe
+the scene preprocessing (`preprocess`), data parallelism over processes
+and the tensor-parallel split of inference over a data x model grid of
+devices (`parallel`), and the tensor-core rate probe
 (`tools.probe_int8_mma`). The
 package imports `torch`, NumPy, SciPy and PIL only, never JAX and never
 `egohmr_tpu`, so it runs on a machine without JAX.

@@ -37,6 +37,7 @@ from ..models import (
 )
 from ..nn import cast_params_bf16
 from ..parallel.mesh import Shard, global_rows
+from ..parallel.tp import TensorParallel
 from ..smpl import SMPLModel, SMPLOutput, lbs, vertex_normals
 from .metrics import (
     apd,
@@ -81,6 +82,7 @@ def sample_bodies(
     guidance_refresh_every: int = 1,
     noise: Optional[torch.Tensor] = None,
     shard: Shard = None,
+    tp: Optional[TensorParallel] = None,
 ) -> Tuple[Dict[str, torch.Tensor], Condition]:
     """Draw `num_samples` bodies per image; outputs are [B, S, ...].
 
@@ -110,7 +112,15 @@ def sample_bodies(
     rows are image-major, so they are the i-th block of the whole batch's;
     x_T and the step noise are drawn for the whole batch and the block
     kept, and the guidance's batch mean runs over all n x B x S bodies:
-    the n blocks together give what the whole batch gives in one run."""
+    the n blocks together give what the whole batch gives in one run.
+
+    `tp`: `model` placed over a data row's model axis (`parallel.tp`;
+    `model` is `tp.module`, and with `bf16` a bf16 copy placed, so
+    `params_precast` must be set): the scene encoder and the denoiser run
+    split, everything else on the row's first device."""
+    if tp is not None and bf16 and not params_precast:
+        raise ValueError("a tensor-parallel model is cast before it is placed: place a "
+                         "cast_params_bf16 copy and pass params_precast=True")
     if (with_guidance and guidance_refresh_every != 1
             and collision_backend in ("occupancy", "volsdf")):
         raise ValueError(
@@ -132,17 +142,17 @@ def sample_bodies(
             model = cast_params_bf16(model)
         batch = dict(batch)
         batch["img"] = batch["img"].to(torch.bfloat16)
-    cond = compute_condition(model, cfg, batch)
+    cond = compute_condition(model, cfg, batch, tp=tp)
     cond_s = tile_condition(cond, num_samples)
     if bf16:
-        raw = make_denoise_fn(model, cfg, cond_s)
+        raw = make_denoise_fn(model, cfg, cond_s, tp=tp)
 
         def denoise(x, t):
             return raw(x.to(torch.bfloat16), t).float()
 
         cond_s, cond = _to_f32(cond_s), _to_f32(cond)
     else:
-        denoise = make_denoise_fn(model, cfg, cond_s)
+        denoise = make_denoise_fn(model, cfg, cond_s, tp=tp)
     guidance_fn = None
     if with_guidance:
         # cond_s is f32 here on the bf16 path too: the guidance, like SMPL

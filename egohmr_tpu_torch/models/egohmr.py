@@ -54,8 +54,10 @@ from ..nn import (
     fc_head_beta,
     input_process,
     modulated_gcn_forward,
+    modulated_gcn_forward_tp,
     pointnet_forward,
     pointnet_forward_fused,
+    pointnet_forward_tp,
     resnet_forward,
     timestep_embed,
     transl_enc,
@@ -63,6 +65,7 @@ from ..nn import (
 from ..nn.gcn import ModulatedGraphConv, NonLocalBlock
 from ..nn.pointnet import ResnetBlockFC
 from ..parallel.mesh import DataParallel
+from ..parallel.tp import TensorParallel
 from ..smpl import (
     SMPLModel,
     lbs,
@@ -252,7 +255,8 @@ def _cam_feats(cfg: EgoHMRConfig, batch: Dict[str, torch.Tensor]) -> torch.Tenso
 def compute_condition(model: EgoHMR, cfg: EgoHMRConfig,
                       batch: Dict[str, torch.Tensor], *, train: bool = False,
                       drop: Optional[torch.Tensor] = None,
-                      dp: Optional[DataParallel] = None) -> Condition:
+                      dp: Optional[DataParallel] = None,
+                      tp: Optional[TensorParallel] = None) -> Condition:
     """Run all conditioners once. The scene cloud is moved into the body's
     frame (minus the input translation), as the reference does.
 
@@ -262,7 +266,16 @@ def compute_condition(model: EgoHMR, cfg: EgoHMRConfig,
     `cfg.cond_mask_prob` > 0 an image's condition is replaced by the
     unconditional one where `drop` [B] bool is True (`train.stage2_loss`
     draws it). With a data-parallel record `dp`, the ResNet's training
-    statistics are the whole batch's."""
+    statistics are the whole batch's.
+
+    `tp`: `model` placed over a data row's model axis (`model` is then
+    `tp.module`); the scene encoder runs split (`pointnet_forward_tp`), the
+    rest on the row's first device. Inference with the plain encoder only:
+    `train` or `cfg.pointnet_impl == "fused"` raises (kernel K1 is one
+    device's program, as JAX's `pallas_call` cannot be partitioned)."""
+    if tp is not None and (train or cfg.pointnet_impl == "fused"):
+        raise ValueError("tensor parallelism is inference with the plain scene encoder: "
+                         f"got train={train}, pointnet_impl={cfg.pointnet_impl!r}")
     B = batch["img"].shape[0]
     img_feats = resnet_forward(model.backbone, batch["img"], train=train, dp=dp)
 
@@ -276,7 +289,9 @@ def compute_condition(model: EgoHMR, cfg: EgoHMRConfig,
     scene_pcd = batch["scene_pcd_verts_full"] - input_transl[:, None, :]
     # the encoder runs in the image dtype; Condition keeps the f32 cloud
     scene_in = scene_pcd.to(batch["img"].dtype)
-    if cfg.pointnet_impl == "fused" and not train:
+    if tp is not None:
+        scene_feats = pointnet_forward_tp(tp.sub("scene_enc"), scene_in)
+    elif cfg.pointnet_impl == "fused" and not train:
         scene_feats = pointnet_forward_fused(model.scene_enc, scene_in)
     else:
         scene_feats = pointnet_forward(model.scene_enc, scene_in)
@@ -323,37 +338,58 @@ def compute_condition(model: EgoHMR, cfg: EgoHMRConfig,
 
 
 def make_denoise_fn(model: EgoHMR, cfg: EgoHMRConfig, cond: Condition, *,
-                    fuse: Optional[bool] = None):
+                    fuse: Optional[bool] = None, tp: Optional[TensorParallel] = None):
     """Closure (x_t [B, 144], t_orig [B]) -> predicted x0 [B, 144].
 
     The GCN input is x = [cond | input_process(x_t) | t_emb], so x @ W
     splits into cond @ W_c + xt @ W_x + temb @ W_t. The cond term is the
-    same on every step and is projected here, once per sampling run."""
+    same on every step and is projected here, once per sampling run.
+
+    `tp`: `model` placed over a data row's model axis; the GCN runs split
+    (`modulated_gcn_forward_tp`). Its input layer is column-parallel, so
+    each shard projects with its own output columns of W_c, W_x and W_t, on
+    its device; the embedders and the cond/uncond choice run on the row's
+    first device."""
     fuse = cfg.diffuse_fuse if fuse is None else fuse
-    gcn = model.diffusion_model
     adj = _adjacency(cond.cond.device)
-    W = gcn.gconv_input[0].gconv.W  # [2, gcn_in_dim, hid]
     Dc, Dx = cfg.context_feats_dim, cfg.input_process_dim
-    Wc, Wx, Wt = W[:, :Dc], W[:, Dc:Dc + Dx], W[:, Dc + Dx:]
-    ch = torch.einsum("bjd,wdh->wbjh", cond.cond, Wc)  # [2, B, 24, hid]
-    cuh = torch.einsum("bjd,wdh->wbjh", cond.cond_uncond, Wc) if fuse else None
+    if tp is None:
+        Ws = [model.diffusion_model.gconv_input[0].gconv.W]  # [2, gcn_in_dim, hid]
+        conds = [(cond.cond, cond.cond_uncond)]
+    else:
+        gcn_tp = tp.sub("diffusion_model")
+        Ws = [gcn_tp.layer(s, "gconv_input.0.gconv").W for s in range(tp.size)]
+        conds = list(zip(tp.scatter(cond.cond), tp.scatter(cond.cond_uncond)))
+    # per shard (one without `tp`): W_x, W_t and the projected cond terms
+    # [2, B, 24, hid / tp]
+    shards = [(W[:, Dc:Dc + Dx], W[:, Dc + Dx:],
+               torch.einsum("bjd,wdh->wbjh", c, W[:, :Dc]),
+               torch.einsum("bjd,wdh->wbjh", cu, W[:, :Dc]) if fuse else None)
+              for W, (c, cu) in zip(Ws, conds)]
     vis = cond.vis_mask_smpl[..., None]
 
     def fn(x_t: torch.Tensor, t_orig: torch.Tensor) -> torch.Tensor:
         B = x_t.shape[0]
         t_emb = timestep_embed(model.embed_timestep, t_orig)
         x_feat = input_process(model.input_process, x_t.reshape(B, 24, 6))
-        base = (torch.einsum("bjd,wdh->wbjh", x_feat, Wx)
-                + torch.einsum("bd,wdh->wbh", t_emb, Wt)[:, :, None])
-        if fuse:
-            h_c, h_u = ch + base, cuh + base
-            out = modulated_gcn_forward(
-                gcn, adj, None,
-                input_h=(torch.cat([h_c[0], h_u[0]]), torch.cat([h_c[1], h_u[1]])))
-            out = torch.where(vis, out[:B], out[B:])
+        ins = ([(x_feat, t_emb)] if tp is None
+               else list(zip(tp.scatter(x_feat), tp.scatter(t_emb))))
+        hs = []
+        for (Wx, Wt, ch, cuh), (xf, te) in zip(shards, ins):
+            base = (torch.einsum("bjd,wdh->wbjh", xf, Wx)
+                    + torch.einsum("bd,wdh->wbh", te, Wt)[:, :, None])
+            if fuse:
+                h_c, h_u = ch + base, cuh + base
+                hs.append((torch.cat([h_c[0], h_u[0]]), torch.cat([h_c[1], h_u[1]])))
+            else:
+                h = ch + base
+                hs.append((h[0], h[1]))
+        if tp is None:
+            out = modulated_gcn_forward(model.diffusion_model, adj, None, input_h=hs[0])
         else:
-            h = ch + base
-            out = modulated_gcn_forward(gcn, adj, None, input_h=(h[0], h[1]))
+            out = modulated_gcn_forward_tp(gcn_tp, adj, None, input_h=hs)
+        if fuse:
+            out = torch.where(vis, out[:B], out[B:])
         return out.reshape(B, 24 * 6)
 
     return fn

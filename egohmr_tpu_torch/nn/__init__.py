@@ -13,8 +13,19 @@ from .embedders import (
     timestep_embed,
     transl_enc,
 )
-from .gcn import ModulatedGCN, NonLocalBlock, modulated_gcn_forward, nonlocal_block
-from .pointnet import ResnetPointnet, pointnet_forward, pointnet_forward_point_sharded
+from .gcn import (
+    ModulatedGCN,
+    NonLocalBlock,
+    modulated_gcn_forward,
+    modulated_gcn_forward_tp,
+    nonlocal_block,
+)
+from .pointnet import (
+    ResnetPointnet,
+    pointnet_forward,
+    pointnet_forward_point_sharded,
+    pointnet_forward_tp,
+)
 from .pointnet_fused import (
     pointnet_forward_fused,
     pointnet_fused_feature,

@@ -10,15 +10,19 @@ the default config) follows the residual layers. Its modules carry the
 reference's names and shapes: `g`, `theta`, `phi` and `W.0` are 1x1 Conv2d
 over a [B, C, 1, 24] layout, which are per-node linears here, and `W.1` is
 its BatchNorm2d.
+
+`modulated_gcn_forward_tp` is the same network split over a data row's
+model axis (`parallel/tp.py`), for inference.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from ..parallel.mesh import DataParallel
+from ..parallel.tp import TensorParallel
 from .core import batchnorm, mm
 
 
@@ -148,3 +152,95 @@ def modulated_gcn_forward(
     if model.non_local is not None:
         out = nonlocal_block(model.non_local, out, train=train, dp=dp)
     return modulated_gconv(model.gconv_output, adj, out)
+
+
+def _nonlocal_block_tp(tp: TensorParallel, x: torch.Tensor) -> torch.Tensor:
+    """`nonlocal_block` in eval with `g`, `theta` and `phi` column-parallel:
+    the logits theta(x) phi(x)^T contract over the split channels, so the
+    shards' partial logits are added (shard 0 first) before the f32
+    softmax; each shard applies the softmax to its slice of g(x), and
+    `W.0`, row-parallel, sums the shards' products before its bias and the
+    replicated BatchNorm `W.1`."""
+    xs = tp.scatter(x)
+    gs, logits = [], []
+    for s in range(tp.size):
+        g, theta, phi = (_conv1x1(tp.layer(s, f"non_local.{n}"), xs[s])
+                         for n in ("g", "theta", "phi"))
+        gs.append(g)
+        logits.append(torch.einsum("bjc,bkc->bjk", theta, phi))
+    f = torch.softmax(tp.reduce(logits).float(), dim=-1).to(x.dtype)
+    fs = tp.scatter(f)
+    parts = []
+    for s in range(tp.size):
+        w = tp.layer(s, "non_local.W.0").weight
+        y = torch.einsum("bjk,bkc->bjc", fs[s], gs[s])
+        parts.append(mm(y, w.view(w.shape[0], -1)))
+    w0 = tp.layer(0, "non_local.W.0")
+    w_y = tp.reduce(parts)
+    w_y = w_y + w0.bias.to(torch.promote_types(w_y.dtype, w0.bias.dtype))
+    return x + batchnorm(tp.layer(0, "non_local.W.1"), w_y, channel_dim=-1, train=False)
+
+
+@torch.no_grad()
+def modulated_gcn_forward_tp(
+    tp: TensorParallel,
+    adj: torch.Tensor,
+    x: Optional[torch.Tensor],
+    *,
+    train: bool = False,
+    input_h: Optional[Sequence[Tuple[torch.Tensor, torch.Tensor]]] = None,
+) -> torch.Tensor:
+    """`modulated_gcn_forward` in eval, split over the devices of one data
+    row (`tp`, a placed `ModulatedGCN`, `parallel.place_params` with
+    `gcn_tp_specs`). x [B, 24, in] on the row's first device -> [B, 24, out]
+    there.
+
+    A column-parallel layer (`gconv_input`, every `gconv1`) runs whole on
+    each shard with its slices of W, M, the bias and the BatchNorm, `adj2`
+    replicated; `gconv_input`'s output is gathered back in shard order,
+    because the residual stream is replicated and every `gconv1` reads all
+    of it. A row-parallel layer (`gconv2`, `gconv_output`) adds the shards'
+    partial x @ W[0] and x @ W[1] (each shard's slice of the input's
+    channels) on the first device, shard 0 first, in the activation dtype,
+    before the replicated modulation, adjacency mix, bias and BatchNorm.
+    Equal to the dense forward up to the order of the split sums.
+
+    `input_h`: per shard, the precomputed (x @ W[0], x @ W[1]) of the input
+    layer's columns on that shard's device (the sampler's hoisted
+    conditioning projection); `x` is ignored when given. `train=True`
+    raises: the split is inference only, as in the JAX package."""
+    if train:
+        raise ValueError("the tensor-parallel GCN is inference only (train=False)")
+    adjs = tp.scatter(adj)
+
+    def column(path, xs=None, hs=None):
+        outs = []
+        for s in range(tp.size):
+            gc = tp.layer(s, f"{path}.gconv")
+            h0, h1 = hs[s] if hs is not None else (xs[s] @ gc.W[0], xs[s] @ gc.W[1])
+            outs.append(_bn_relu(tp.layer(s, f"{path}.bn"),
+                                 modulated_gconv_mix(gc, adjs[s], h0, h1), False))
+        return outs
+
+    def row(path, hs):
+        parts0, parts1 = [], []
+        for s in range(tp.size):
+            W = tp.layer(s, path).W
+            parts0.append(hs[s] @ W[0])
+            parts1.append(hs[s] @ W[1])
+        return modulated_gconv_mix(tp.layer(0, path), adj, tp.reduce(parts0),
+                                   tp.reduce(parts1))
+
+    if input_h is not None:
+        out = tp.gather(column("gconv_input.0", hs=input_h))
+    else:
+        out = tp.gather(column("gconv_input.0", xs=tp.scatter(x)))
+    for i in range(len(tp.module.gconv_layers)):
+        residual = out
+        h = column(f"gconv_layers.{i}.gconv1", xs=tp.scatter(out))
+        out = _bn_relu(tp.layer(0, f"gconv_layers.{i}.gconv2.bn"),
+                       row(f"gconv_layers.{i}.gconv2.gconv", h), False)
+        out = residual + out
+    if tp.module.non_local is not None:
+        out = _nonlocal_block_tp(tp, out)
+    return row("gconv_output", tp.split(out))

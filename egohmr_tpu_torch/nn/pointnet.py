@@ -1,6 +1,7 @@
 """ResnetPointnet scene encoder, plain PyTorch (port of
 egohmr_tpu/nn/pointnet.py:pointnet_forward). This is the float32 path and
-the reference the fused kernel K1 is held to."""
+the reference the fused kernel K1 is held to. `pointnet_forward_tp` is the
+same network split over a data row's model axis (`parallel/tp.py`)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -9,6 +10,7 @@ import torch
 from torch import nn
 
 from ..parallel.mesh import DataParallel, all_reduce_max
+from ..parallel.tp import TensorParallel
 from .core import linear, mm
 
 
@@ -87,3 +89,50 @@ def pointnet_forward_point_sharded(model: ResnetPointnet, points: torch.Tensor,
     net = _block_split(model.block_3, net, pool(net))
     net = pool(net)[:, 0]
     return linear(model.fc_c, torch.relu(net))
+
+
+def _add_bias(y: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return y + b.to(torch.promote_types(y.dtype, b.dtype))
+
+
+@torch.no_grad()
+def pointnet_forward_tp(tp: TensorParallel, points: torch.Tensor) -> torch.Tensor:
+    """`pointnet_forward` (without a mask) split over the devices of one data
+    row (`tp`, a placed `ResnetPointnet`: `parallel.place_params` with
+    `pointnet_tp_specs`). In each block every shard computes its columns of
+    `fc_0` from the replicated stream and its partial `fc_1` product; the
+    partial sums are added on the row's first device, shard 0 first, in the
+    activation dtype, before `fc_1`'s bias and the residual. `fc_pos_0`, the
+    shortcuts, the max-pools and `fc_c` run replicated on the first device.
+    Equal to `pointnet_forward` up to the order of the split sums.
+    Inference only."""
+    def pool(net):
+        return net.amax(dim=1, keepdim=True)
+
+    def block(i, x, pooled=None):
+        """`_block` (no `pooled`) or `_block_split`: cat([x, pooled]) @ W ==
+        x @ W[:h] + pooled @ W[h:]."""
+        name, h = f"block_{i}", x.shape[-1]
+        xs = tp.scatter(torch.relu(x))
+        ps = tp.scatter(torch.relu(pooled)) if pooled is not None else None
+        parts = []
+        for s in range(tp.size):
+            fc0, fc1 = tp.layer(s, f"{name}.fc_0"), tp.layer(s, f"{name}.fc_1")
+            if ps is None:
+                net = mm(xs[s], fc0.weight)
+            else:
+                net = mm(xs[s], fc0.weight[:, :h]) + mm(ps[s], fc0.weight[:, h:])
+            parts.append(mm(torch.relu(_add_bias(net, fc0.bias)), fc1.weight))
+        dx = _add_bias(tp.reduce(parts), tp.layer(0, f"{name}.fc_1").bias)
+        ws = tp.layer(0, f"{name}.shortcut").weight  # every block maps 2H to H
+        if pooled is None:
+            return mm(x, ws) + dx
+        return mm(x, ws[:, :h]) + mm(pooled, ws[:, h:]) + dx
+
+    net = linear(tp.layer(0, "fc_pos_0"), points)
+    net = block(0, net)
+    net = block(1, net, pool(net))
+    net = block(2, net, pool(net))
+    net = block(3, net, pool(net))
+    net = pool(net)[:, 0]
+    return linear(tp.layer(0, "fc_c"), torch.relu(net))

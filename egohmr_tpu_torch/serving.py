@@ -1,5 +1,5 @@
 """Serving wrapper for stage-2 body sampling (port of
-egohmr_tpu/serving.py:Predictor, without tensor parallelism).
+egohmr_tpu/serving.py:Predictor).
 
   * one fixed (batch_size, num_samples) shape: short requests are padded
     and the results trimmed;
@@ -12,7 +12,10 @@ egohmr_tpu/serving.py:Predictor, without tensor parallelism).
     event of the oldest request;
   * `device` may be a sequence of devices, the counterpart of the JAX
     package's 1-D `mesh=`: one replica per entry, each request's batch
-    split into equal blocks of rows, one per replica.
+    split into equal blocks of rows, one per replica; or a data x model
+    grid of devices, the counterpart of its 2-D `mesh=`: one replica per
+    row, its scene PointNet and GCN split over the row's devices
+    (`parallel/tp.py`).
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ from .eval.pipeline import sample_bodies
 from .models import BodyRepStats, EgoHMR, EgoHMRConfig
 from .nn import cast_params_bf16
 from .parallel.mesh import shard_batch
+from .parallel.tp import egohmr_tp_specs, place_params
 from .smpl import SMPLModel
 
 # the compact default output set; pose/betas (+ the input translation)
@@ -71,9 +75,19 @@ class Predictor:
     and the guidance's batch mean runs over the whole batch, so the
     outputs are those of one device. They are assembled on the first
     device in row order. Two entries may name the same card; each is then
-    a replica of its own. A 2-D data x model grid (a sequence of
-    sequences) is the JAX package's tensor-parallel mode, which is not
-    ported (`parallel/tp.py`, ROADMAP queue 1)."""
+    a replica of its own.
+
+    `device` may also be a dp x tp grid, a sequence of dp rows of tp
+    devices (`parallel.make_dp_tp_grid`; the JAX package's 2-D data x model
+    `mesh=`): each row is a data block, as each replica above, and holds a
+    copy of the model placed over its devices (`parallel.place_params`
+    with `egohmr_tp_specs`): the scene PointNet and the GCN run split, the
+    rest on the row's first device. `batch_size` must divide by dp and
+    every split width by tp. Under tp > 1 the scene encoder is the split
+    plain one: `pointnet_impl="fused"` becomes "xla" (kernel K1 is one
+    device's program, as the JAX package's `pallas_call`, which GSPMD
+    cannot partition), which `self.cfg.pointnet_impl` shows. A dp x 1 grid
+    is the flat sequence of its rows' devices."""
 
     def __init__(
         self,
@@ -95,24 +109,31 @@ class Predictor:
         with_guidance: bool = False,
         guidance: GuidanceConfig = GuidanceConfig(),
     ):
-        self.cfg = replace(cfg, pointnet_impl=pointnet_impl)
-        devices = list(device) if isinstance(device, (list, tuple)) else [device]
-        if any(isinstance(d, (list, tuple)) for d in devices):
-            raise NotImplementedError(
-                "a 2-D data x model device grid is the JAX package's tensor-parallel "
-                "serving mode, which the port does not have yet (parallel/tp.py, "
-                "ROADMAP queue 1); pass one device or a flat sequence of devices")
-        if not devices:
+        entries = list(device) if isinstance(device, (list, tuple)) else [device]
+        if not entries:
             raise ValueError("Predictor needs at least one device")
-        self.devices = [torch.device(d) for d in devices]
+        nested = [isinstance(d, (list, tuple)) for d in entries]
+        if any(nested) and not all(nested):
+            raise ValueError("a device grid's entries must all be rows of devices")
+        self.grid = [[torch.device(d) for d in (e if n else [e])]
+                     for e, n in zip(entries, nested)]
+        self.tp = len(self.grid[0])
+        if self.tp == 0 or any(len(r) != self.tp for r in self.grid):
+            raise ValueError("a device grid's rows must be of one non-zero width: "
+                             f"{[len(r) for r in self.grid]}")
+        if self.tp > 1 and pointnet_impl == "fused":
+            pointnet_impl = "xla"  # K1 runs on one device; the split encoder is the plain one
+        self.cfg = replace(cfg, pointnet_impl=pointnet_impl)
+        self.devices = [r[0] for r in self.grid]  # each data block's first device
         self.device = self.devices[0]
         self.batch_size = int(batch_size)
         if self.batch_size % len(self.devices):
+            what = "data rows" if self.tp > 1 else "devices"
             raise ValueError(f"batch_size {self.batch_size} must divide by the "
-                             f"{len(self.devices)} devices")
-        if len({d.type for d in self.devices}) > 1:
+                             f"{len(self.devices)} {what}")
+        if len({d.type for r in self.grid for d in r}) > 1:
             raise ValueError("the devices of one Predictor must be of one type: "
-                             f"{[str(d) for d in self.devices]}")
+                             f"{[[str(d) for d in r] for r in self.grid]}")
         self.num_samples = int(num_samples)
         self.bf16 = bf16
         self.max_inflight = max(1, int(max_inflight))
@@ -123,12 +144,19 @@ class Predictor:
         self._output_keys = tuple(output_keys)
         if bf16:
             model = cast_params_bf16(model)
-        self._replicas = []
-        for i, d in enumerate(self.devices):
-            rep = model if i == 0 else copy.deepcopy(model)
-            self._replicas.append((
-                rep.to(d, memory_format=torch.channels_last).eval(), smpl.to(d),
-                BodyRepStats(stats.mean.to(d), stats.std.to(d)), schedule.to(d)))
+        # per data block: its model and, under tp > 1, its placement
+        if self.tp > 1:
+            model = model.to(memory_format=torch.channels_last).eval()
+            blocks = [(p.module, p) for p in
+                      place_params(self.grid, model, egohmr_tp_specs(model))]
+        else:
+            blocks = [((model if i == 0 else copy.deepcopy(model)).to(
+                d, memory_format=torch.channels_last).eval(), None)
+                for i, d in enumerate(self.devices)]
+        self._replicas = [
+            (rep, smpl.to(d), BodyRepStats(stats.mean.to(d), stats.std.to(d)),
+             schedule.to(d), placed)
+            for d, (rep, placed) in zip(self.devices, blocks)]
         self._layout = None  # [(key, trailing_shape, offset, size)]
 
     def _pack(self, outs: Dict) -> torch.Tensor:
@@ -150,12 +178,12 @@ class Predictor:
         return torch.cat(flat, dim=-1)
 
     def _sample(self, replica, batch: Dict, generator: torch.Generator, **kw) -> Dict:
-        model, smpl, stats, schedule = replica
+        model, smpl, stats, schedule, placed = replica
         outs, _ = sample_bodies(
             model, self.cfg, smpl, stats, schedule,
             batch, generator, self.num_samples, sampler=self.sampler,
             with_guidance=self.with_guidance, guidance=self.guidance,
-            bf16=self.bf16, params_precast=self.bf16, **kw)
+            bf16=self.bf16, params_precast=self.bf16, tp=placed, **kw)
         return outs
 
     def _run(self, batch: Dict, generator: torch.Generator) -> torch.Tensor:

@@ -11,6 +11,7 @@ import glob
 import json
 import os
 import pickle
+import shutil
 
 import jax
 import numpy as np
@@ -88,7 +89,8 @@ def steps(tmp_path_factory):
     one["stage1"] = worker.stage1_step(inp, None)
     while not ctx.join():
         pass
-    return jax_out, one, worker.load(root, "steps", WORLD)
+    yield jax_out, one, worker.load(root, "steps", WORLD)
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def _grads_close(got, want, rtol, scale=1e-3):
@@ -237,7 +239,8 @@ def clis(tmp_path_factory):
             "--save_root", os.path.join(root, "world1_eval_ddpm")])
     while not ctx.join():
         pass
-    return root, one, unguided, worker.load(root, "clis", WORLD)
+    yield root, one, unguided, worker.load(root, "clis", WORLD)
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def _metrics(save_dir):

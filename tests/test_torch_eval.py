@@ -30,7 +30,7 @@ from egohmr_tpu_torch.smpl import make_synthetic_model
 
 from .test_egobody_dataset import N_ITEMS, egobody_root  # noqa: F401 (pytest fixture)
 from .test_torch_data import _write_smpl_pkl
-from .torch_parity import TINY, tiny_pair, to_jax, to_np
+from .torch_parity import TINY, tiny_pair, tmp_path, to_jax, to_np  # noqa: F401 (tmp_path: a fixture)
 
 B, S, V, P = 3, 3, 300, 400
 ARTIFACTS = os.path.join(os.path.dirname(__file__), "..", "artifacts")

@@ -31,7 +31,7 @@ from egohmr_tpu_torch.nn import cast_params_bf16
 from egohmr_tpu_torch.smpl import constants as TC
 from egohmr_tpu_torch.smpl import lbs, make_synthetic_model
 
-from .torch_parity import tiny_pair, to_jax, to_np
+from .torch_parity import tiny_pair, tmp_path, to_jax, to_np  # noqa: F401 (tmp_path: a fixture)
 
 
 @pytest.fixture(scope="module")

@@ -6,6 +6,7 @@ multi-device `Predictor` and the refusals. Ranks are processes on a gloo
 group (`torch_dp_worker.spawn`); the steps and the CLIs are
 `test_torch_dp.py`'s."""
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -83,7 +84,8 @@ def test_draw_rows_keeps_each_blocks_rows_of_the_global_draw(world):
 def helpers(request, tmp_path_factory):
     root = str(tmp_path_factory.mktemp(f"helpers{request.param}"))
     worker.spawn(worker.helper_cases, request.param, root)
-    return request.param, worker.load(root, "helpers", request.param)
+    yield request.param, worker.load(root, "helpers", request.param)
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def test_gather_rows_and_replicate(helpers):
@@ -175,7 +177,8 @@ def bn_encoder(tmp_path_factory):
     inp["points"] = torch.tensor(rng.randn(ENC_B, ENC_P, 3).astype(np.float32))
     torch.save(inp, os.path.join(root, "inputs.pt"))
     worker.spawn(worker.bn_and_encoder_cases, 2, root)
-    return inp, bn_params, params["scene_enc"], enc, worker.load(root, "bn_encoder", 2)
+    yield inp, bn_params, params["scene_enc"], enc, worker.load(root, "bn_encoder", 2)
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def _world1_bn(case):
@@ -334,17 +337,16 @@ def test_predictor_over_two_devices_equals_one(run):
 
 
 def test_predictor_refuses_what_it_cannot_do():
-    """A batch the devices do not divide, a 2-D data x model grid (the
-    JAX package's tensor-parallel mode, not ported) and mixed device
-    types each raise."""
+    """A batch the devices do not divide, a data x model grid whose model
+    axis does not divide a split width (`parallel/tp.py`; the grid's own
+    tests are `test_torch_tp.py`) and mixed device types each raise."""
     cfg, model, smpl, stats = _predictor_world()
     schedule = make_schedule(50, "cosine", "ddim5")
     kw = dict(batch_size=5, bf16=False, pointnet_impl="xla")
     with pytest.raises(ValueError, match="must divide"):
         Predictor(model, cfg, smpl, stats, schedule, device=["cpu", "cpu"], **kw)
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        Predictor(model, cfg, smpl, stats, schedule, device=[["cpu", "cpu"], ["cpu", "cpu"]],
-                  **kw)
+    with pytest.raises(ValueError, match="does not divide by the 3-way model axis"):
+        Predictor(model, cfg, smpl, stats, schedule, device=[["cpu", "cpu", "cpu"]], **kw)
     with pytest.raises(ValueError, match="one type"):
         Predictor(model, cfg, smpl, stats, schedule, device=["cpu", "meta"],
                   **{**kw, "batch_size": 4})

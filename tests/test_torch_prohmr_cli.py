@@ -21,7 +21,7 @@ from egohmr_tpu_torch.models import prohmr as tprohmr
 
 from .test_egobody_dataset import N_ITEMS, egobody_root  # noqa: F401 (pytest fixture)
 from .test_torch_data import _write_smpl_pkl
-from .torch_parity import TINY_PROHMR, tiny_prohmr_pair, to_jax
+from .torch_parity import TINY_PROHMR, tiny_prohmr_pair, tmp_path, to_jax  # noqa: F401 (tmp_path: a fixture)
 
 
 def test_cli_has_the_originals_flags_and_defaults():

@@ -24,6 +24,7 @@ from egohmr_tpu_torch.utils.checkpoint import latest_checkpoint, restore_checkpo
 
 from .test_egobody_dataset import egobody_root  # noqa: F401 (pytest fixture)
 from .test_torch_data import _write_smpl_pkl
+from .torch_parity import tmp_path  # noqa: F401 (a fixture: removed after each test)
 
 COMMON = ["--device", "cpu", "--synthetic", "--batch_size", "2", "--log_step", "1",
           "--save_step", "1000", "--data_parallel", "false"]

@@ -4,15 +4,28 @@ The same seeded NumPy inputs and weights go through `egohmr_tpu` (JAX) and
 `egohmr_tpu_torch`; weights reach the port through
 `interop.state_dict_from_jax`. Every crossing copies.
 """
+import shutil
+
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from egohmr_tpu.models import EgoHMRConfig as JaxConfig
 from egohmr_tpu.models import init_egohmr
 from egohmr_tpu_torch.interop import state_dict_from_jax
 from egohmr_tpu_torch.models import EgoHMR, EgoHMRConfig
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's `tmp_path`, removed when the test ends. Imported into a test
+    module, it takes the place of pytest's own there: pytest keeps the
+    directories of the last three runs, and the port's CLI tests write
+    checkpoints of hundreds of MB each."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
 
 # tiny widths; ResNet-18 because the JAX "stub" backbone has no torch layout
 TINY = dict(resnet_layers=18, img_feat_dim=512, scene_feat_dim=32,
