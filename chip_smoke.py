@@ -103,6 +103,19 @@ Phases (any failure exits non-zero):
                at phase 5's raised weights, the grid's and the flat
                2-replica split's gaps from one device, printed. One card:
                no latency claim
+ 12. bench   — the measurement entry points at full width, in process, at
+               --iters 1 (chains of 3 and 9 requests): `python -m
+               egohmr_tpu_torch.bench` in its default mode (with the
+               reference-architecture baselines and the paper setting),
+               --guided-ddim, --guided, --serving and --train; one sweep
+               point of `tools/profile_serving.py`; the exact-r3 and fwd-r3
+               runs of `tools/probe_guided_backward.py`. Each prints one
+               JSON line with the JAX bench's metric name and a non-null
+               value; K1 launches in the default, serving and guided runs,
+               K2 in the guided, training and probe runs; before each
+               request program is timed, one untimed request of it runs
+               under the recorder and every K1 and K2 call of it is held to
+               its plain version
 Before the last line come a JSON object with one entry per kernel and the
 card's name and power limit; the last line is {"ok": true, "device":
 {...}}. Nothing runs without a GPU.
@@ -3061,6 +3074,85 @@ def phase_tp(cfg, dev=None) -> dict:
     return res
 
 
+# phase 12: (name, entry point, arguments, metric, the JSON key that must be
+# non-null, the kernels that must launch)
+BENCH_RUNS = (
+    ("default", "bench", [], "ddim5_samples_per_sec_per_chip", "value", ("k1",)),
+    ("guided-ddim", "bench", ["--guided-ddim"], "guided_ddim5_samples_per_sec_per_chip",
+     "value", ("k1", "k2")),
+    ("guided", "bench", ["--guided"], "guided_ddpm50_samples_per_sec_per_chip", "value",
+     ("k1", "k2")),
+    ("serving", "bench", ["--serving"], "serving_predictor_samples_per_sec_per_chip",
+     "value", ("k1",)),
+    ("train", "bench", ["--train"], "train_step_imgs_per_sec_per_chip", "value", ("k2",)),
+    ("profile_serving", "tools.profile_serving",
+     ["--sweep", "4", "--stream", "9", "--reps", "1"], "serving_profile", "device_ms",
+     ("k1",)),
+    ("probe_guided_backward", "tools.probe_guided_backward", [],
+     "guided_ddpm50_backward_decomposition", "backward_cost_ms_per_batch", ("k1", "k2")),
+)
+BENCH_ITERS = 1  # the shortest chains of the bench's method: 3 and 9 requests
+
+
+def phase_bench() -> dict:
+    """Phase 12: every measurement entry point of the port at full width,
+    in process: each run's one JSON line parsed and checked (metric name, a
+    non-null result), its K1 and K2 launches counted from 0 by the
+    wrappers, and, through the entry points' request hook, one untimed
+    request of every request program it times recorded and each of its K1
+    and K2 calls held to the plain version."""
+    import importlib
+    import io
+
+    from egohmr_tpu_torch.collision import knn as k2
+    from egohmr_tpu_torch.nn import pointnet_fused as k1
+
+    totals, res = {"k1": 0, "k2": 0}, {}
+    for name, module, argv, metric, key, needs in BENCH_RUNS:
+        entry = importlib.import_module(f"egohmr_tpu_torch.{module}")
+        held, recorded = [], {"k1": 0, "k2": 0}
+
+        def hold(request_name, request):
+            with kernel_calls() as seen:
+                request()
+                torch.cuda.synchronize()
+            for k in recorded:
+                recorded[k] += len(seen[k])
+            held.append(hold_kernel_calls(seen, f"{name}, {request_name}"))
+
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        k1.launches = k2.launches = 0  # this run's main path starts
+        with contextlib.redirect_stdout(out):
+            rc = entry.main(argv + ["--iters", str(BENCH_ITERS)], request_hook=hold)
+        launches = {"k1": k1.launches, "k2": k2.launches}  # and ends
+        lines = [line for line in out.getvalue().splitlines() if line.startswith("{")]
+        if rc != 0 or len(lines) != 1:
+            fail(f"bench {name}: exit {rc}, {len(lines)} JSON lines: {out.getvalue()[-2000:]}")
+        d = json.loads(lines[0])
+        if d.get("metric") != metric or d.get(key) is None:
+            fail(f"bench {name}: metric {d.get('metric')!r} (want {metric!r}), {key} "
+                 f"{d.get(key)!r}")
+        for k in needs:
+            if launches[k] < 1 or recorded[k] < 1:
+                fail(f"bench {name}: {k.upper()} launched {launches[k]} times, {recorded[k]} "
+                     "calls recorded in its untimed requests (want both > 0)")
+        for line in held:
+            log("bench", line)
+        extra = d.get("extra", d)
+        per_request = (extra.get("launches_per_request") or extra.get("launches_per_step")
+                       or d.get("launches_per_request"))
+        log("bench", f"{name}: {metric} {key}={d[key]!r}, launches K1 {launches['k1']} "
+                     f"K2 {launches['k2']} (per request {per_request}), "
+                     f"{time.perf_counter() - t0:.1f} s")
+        log("bench", lines[0])
+        res[name] = {"value": d[key], "launches": launches, "per_request": per_request}
+        for k in totals:
+            totals[k] += launches[k]
+    res.update(totals)
+    return res
+
+
 def main() -> None:
     smi = phase_device()
     from egohmr_tpu_torch.models import EgoHMRConfig
@@ -3076,21 +3168,22 @@ def main() -> None:
     learned = phase_learned(cfg)
     parallel = phase_parallel(cfg)
     tensor_parallel = phase_tp(cfg)
+    benched = phase_bench()
     # launches: over the main paths, each counted from 0 just before it (K3's
     # main path is the probe's own entry point, counted in its phase)
     kernels[0].update(launches=(unguided + guided["k1"] + evaluated["k1"] + trained["k1"]
                                 + stage1["launches"] + stage1["train_launches"] + learned["k1"]
-                                + parallel["k1"] + tensor_parallel["k1"]),
+                                + parallel["k1"] + tensor_parallel["k1"] + benched["k1"]),
                       launches_learned=learned["k1"], launches_parallel=parallel["k1"],
-                      launches_tp=tensor_parallel["k1"],
+                      launches_tp=tensor_parallel["k1"], launches_bench=benched["k1"],
                       launches_unguided=unguided, launches_guided=guided["k1"],
                       launches_eval=evaluated["k1"], launches_train=trained["k1"],
                       launches_stage1=stage1["launches"],
                       launches_stage1_train=stage1["train_launches"], stage1=stage1["k1"])
     kernels[1].update(launches=(guided["k2"] + evaluated["k2"] + trained["k2"] + learned["k2"]
-                                + parallel["k2"] + tensor_parallel["k2"]),
+                                + parallel["k2"] + tensor_parallel["k2"] + benched["k2"]),
                       launches_learned=learned["k2"], launches_parallel=parallel["k2"],
-                      launches_tp=tensor_parallel["k2"],
+                      launches_tp=tensor_parallel["k2"], launches_bench=benched["k2"],
                       parallel_collision_shape=parallel["k2_collision_shape"],
                       distill_label_shapes=learned["k2_label_shapes"],
                       launches_unguided=0, launches_guided=guided["k2"],

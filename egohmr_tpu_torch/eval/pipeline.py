@@ -80,6 +80,7 @@ def sample_bodies(
     bf16: bool = False,
     params_precast: bool = False,
     guidance_refresh_every: int = 1,
+    guidance_grad_mode: str = "exact",
     noise: Optional[torch.Tensor] = None,
     shard: Shard = None,
     tp: Optional[TensorParallel] = None,
@@ -97,6 +98,10 @@ def sample_bodies(
     path too. `guidance_refresh_every` > 1 reuses the guided step's
     selection pass across that many adjacent guided steps (an
     approximation; 1 is exact; the mesh SDF's only).
+    `guidance_grad_mode` is a profiling seam of the mesh SDF's guidance
+    ("forward-only" measures the guided step without its backward,
+    `tools/probe_guided_backward.py`; `make_guidance_fn`'s `grad_mode`);
+    anything but "exact" is not a product mode.
     The whole function runs without autograd; the guidance takes its
     gradient in a scope of its own.
 
@@ -118,6 +123,9 @@ def sample_bodies(
     `model` is `tp.module`, and with `bf16` a bf16 copy placed, so
     `params_precast` must be set): the scene encoder and the denoiser run
     split, everything else on the row's first device."""
+    if guidance_grad_mode != "exact" and collision_backend != "sdf":
+        raise ValueError("guidance_grad_mode is an sdf-backend profiling "
+                         "seam; use --collision_backend sdf")
     if tp is not None and bf16 and not params_precast:
         raise ValueError("a tensor-parallel model is cast before it is placed: place a "
                          "cast_params_bf16 copy and pass params_precast=True")
@@ -167,7 +175,8 @@ def sample_bodies(
         else:
             guidance_fn = make_guidance_fn(
                 model, cfg, smpl, cond_s, stats,
-                selection_refresh_every=guidance_refresh_every, global_rows=rows)
+                selection_refresh_every=guidance_refresh_every, global_rows=rows,
+                grad_mode=guidance_grad_mode)
     _, x0 = sample_loop(schedule, denoise, generator, (B * num_samples, 144),
                         sampler=sampler, guidance_fn=guidance_fn,
                         guidance=guidance, noise=noise, shard=shard)

@@ -29,7 +29,7 @@ from egohmr_tpu_torch.models import BodyRepStats
 from egohmr_tpu_torch.serving import MESH_OUTPUT_KEYS, Predictor
 from egohmr_tpu_torch.smpl import make_synthetic_model
 
-from .torch_parity import tiny_pair, to_jax, to_np
+from .torch_parity import THREADS, tiny_pair, to_jax, to_np
 
 S, V = 2, 512
 KEYS = ("pred_keypoints_3d", "pred_vertices", "pred_betas")
@@ -248,7 +248,7 @@ def test_map_batches_in_order(predictor):
 
 
 def test_port_never_imports_jax():
-    """No file under the package (its `tools/`, `viz/`, `utils/`, `flow/`,
+    """No file under the package (its `bench.py`, `tools/`, `viz/`, `utils/`, `flow/`,
     `parallel/` and `preprocess/` included, and stage 1's model,
     discriminator, training step and CLIs, the learned collision nets, their
     converters and CLIs) and not chip_smoke.py imports JAX or egohmr_tpu, and
@@ -268,7 +268,8 @@ def test_port_never_imports_jax():
             "interop/__init__.py", "interop/coap_convert.py", "interop/volsmpl_convert.py",
             "eval/test_egohmr_volsmpl.py", "train/distill_occupancy.py",
             "train/distill_sdf.py", "parallel/__init__.py", "parallel/mesh.py",
-            "utils/device.py"} <= walked
+            "utils/device.py", "bench.py", "tools/profile_serving.py",
+            "tools/probe_guided_backward.py"} <= walked
     for f in sources:
         for node in ast.walk(ast.parse(open(f).read())):
             names = ([a.name for a in node.names] if isinstance(node, ast.Import)
@@ -296,10 +297,13 @@ def test_port_never_imports_jax():
         "import egohmr_tpu_torch.eval.test_prohmr, egohmr_tpu_torch.train.train_prohmr\n"
         "import egohmr_tpu_torch.preprocess.scene, egohmr_tpu_torch.flow\n"
         "import egohmr_tpu_torch.parallel, egohmr_tpu_torch.utils.device\n"
+        "import egohmr_tpu_torch.bench, egohmr_tpu_torch.tools.profile_serving\n"
+        "import egohmr_tpu_torch.tools.probe_guided_backward\n"
         "assert 'jax' not in sys.modules and 'egohmr_tpu' not in sys.modules\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = root
+    env["OMP_NUM_THREADS"] = str(THREADS)  # the worker's share of the cores
     res = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr

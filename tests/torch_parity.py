@@ -3,7 +3,13 @@
 The same seeded NumPy inputs and weights go through `egohmr_tpu` (JAX) and
 `egohmr_tpu_torch`; weights reach the port through
 `interop.state_dict_from_jax`. Every crossing copies.
+
+Importing this module pins torch's intra-op threads under pytest-xdist
+(`pin_torch_threads`). Every xdist worker imports every test module while it
+collects, so each worker is pinned before its first test, in the test files
+that do not import this module too.
 """
+import os
 import shutil
 
 import jax
@@ -16,6 +22,20 @@ from egohmr_tpu.models import EgoHMRConfig as JaxConfig
 from egohmr_tpu.models import init_egohmr
 from egohmr_tpu_torch.interop import state_dict_from_jax
 from egohmr_tpu_torch.models import EgoHMR, EgoHMRConfig
+
+
+def pin_torch_threads() -> int:
+    """Under pytest-xdist (`PYTEST_XDIST_WORKER` set), set torch's intra-op
+    threads to this worker's share of the cores, max(1, cores // workers):
+    each worker at torch's default of one thread per core oversubscribes
+    the host several times over. Returns the thread count in force."""
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT") or 1)
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
+    return torch.get_num_threads()
+
+
+THREADS = pin_torch_threads()
 
 @pytest.fixture
 def tmp_path(tmp_path):
