@@ -116,6 +116,20 @@ Phases (any failure exits non-zero):
                request program is timed, one untimed request of it runs
                under the recorder and every K1 and K2 call of it is held to
                its plain version
+ 13. tools   — the JAX repo's last entry points, ported to
+               `egohmr_tpu_torch/tools/`, at full width, in process, on an
+               EgoBody-layout root written here (20 frames, 20,000-point
+               clouds, synthetic SMPL pickles, random checkpoints of both
+               stages): `real_weights_eval` at its defaults (K1 once a
+               batch in each stage, K2 twice a batch plus 11 times a guided
+               batch), its stage-2 error keys within 5 mm of its `--bf16
+               false` run; `measure_guidance_reuse_deviation --batch 16`
+               (K2 ceil(g / r) times a request, g = 4 and 11 guided steps);
+               `compare_train_precision --steps 200 --eval_every 100` (K2
+               once a step, both runs' losses below 0.8 x their start);
+               `probe_gcn` at its defaults; `visualize_results` on the
+               stage-2 `results.pkl`. Every K1 and K2 call of these runs is
+               held to its plain version
 Before the last line come a JSON object with one entry per kernel and the
 card's name and power limit; the last line is {"ok": true, "device":
 {...}}. Nothing runs without a GPU.
@@ -1453,27 +1467,45 @@ def phase_stage1() -> dict:
                           f"{len(per_batch) - 1} {ev:.3f} / {host:.3f}); K1 launches {launches}")
             runs[name].update(event_ms=ev, host_ms=host, first_event_ms=per_batch[0][0],
                               first_host_ms=per_batch[0][1])
-        # each batch's forward under the profiler: K1's four stage kernels
-        # per call, and the kernels of the batch
-        profiled = []
+        # the whole run under one profiler session: K1's four stage kernels
+        # per call, and the kernels of each batch's forward. One session, not
+        # one a batch: a session stopped and started once a batch has been
+        # seen to lose a batch's kernels. A marker kernel runs on a
+        # synchronized card before and after each forward, so the device's
+        # own clock tells each forward's kernels from the rest of the run.
+        def marker():
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1000)  # `spin_kernel`
+            torch.cuda.synchronize()
 
-        def profiled_forward(*a, **kw):
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                out = forward(*a, **kw)
-                torch.cuda.synchronize()
-            events = [e for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA]
-            profiled.append((sum(e.self_device_time_total for e in events) / 1e3,
-                             sum(e.count for e in events),
-                             sum(e.count for e in events if "stage_kernel" in e.key)))
+        def marked_forward(*a, **kw):
+            marker()
+            out = forward(*a, **kw)
+            marker()
             return out
 
-        s1cli.forward = profiled_forward
+        s1cli.forward = marked_forward
         k1.launches = 0
-        s1cli.main(S1_ARGS + ["--save_root", f"{tmp.name}/profiled"])
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            s1cli.main(S1_ARGS + ["--save_root", f"{tmp.name}/profiled"])
+            torch.cuda.synchronize()
     finally:
         s1cli.forward, prohmr.pointnet_forward_fused = forward, fused
-    stages = sum(p[2] for p in profiled)
+    device = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    profiled, batch, inside = [], [], False
+    for e in device:
+        if "spin_kernel" in e.name:
+            if inside:
+                profiled.append((sum(k.time_range.elapsed_us() for k in batch) / 1e3,
+                                 len(batch), sum("stage_kernel" in k.name for k in batch)))
+            batch, inside = [], not inside
+        elif inside:
+            batch.append(e)
+    if len(profiled) != S1_BATCHES or inside:
+        fail(f"stage-1 eval under the profiler: {len(profiled)} forwards between markers "
+             f"(want {S1_BATCHES})")
+    stages = sum("stage_kernel" in e.name for e in device)  # in the forwards or not
     got, want = runs["fused"], runs["xla"]
     prof_ms, prof_launches = profiled[-1][:2]  # the last batch: K1's weights prepared
     log("stage1", f"K1 under the profiler: {stages} stage_kernel launches, {stages / 4:g} K1 "
@@ -3153,6 +3185,311 @@ def phase_bench() -> dict:
     return res
 
 
+# phase 13: the JAX repo's last entry points, in process
+TOOLS_IMAGES = 20       # the written EgoBody test split: two batches of the tools' 10
+TOOLS_RECORDING = "recording_20210907_S02_S01_01"
+TOOLS_HOLO_TIME = "2021-09-07-155421"
+TOOLS_SCENE = "seminar_d78"
+TOOLS_TRAIN_STEPS, TOOLS_TRAIN_EVAL = 200, 100
+REUSE_GUIDED_STEPS = {"ddim5": 4, "ddpm50": 11}  # guided steps a request, refresh every r
+REUSE_REFRESH = (2, 4)  # the tool's default --refresh
+
+
+def write_egobody_root(root: str, n: int = TOOLS_IMAGES, points: int = P_FULL,
+                       seed: int = 0) -> None:
+    """An EgoBody release layout under `root`, as `tests/test_egobody_dataset.py`
+    writes it (one recording, identity transforms), with `n` 480x270 JPEG
+    frames, the test annotations at the CLIs' default path, the whole-scene
+    cloud and per-frame scene cubes (from the GT and from stage 1's
+    translations) of `points` points around the bodies 2.5 m ahead."""
+    import pickle
+
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    rel = f"egocentric_color/{TOOLS_RECORDING}/{TOOLS_HOLO_TIME}/PV"
+    os.makedirs(os.path.join(root, rel))
+    names, stamps = [], []
+    for i in range(n):
+        ts = str(132754997786014666 + i)
+        name = f"{ts}_frame_{i:05d}.jpg"
+        Image.fromarray((rng.rand(270, 480, 3) * 255).astype(np.uint8)).save(
+            os.path.join(root, rel, name))
+        names.append(f"{rel}/{name}")
+        stamps.append(ts)
+    ann = os.path.join(root, "annotation_egocentric_smpl_npz", "egocapture_test_smpl.npz")
+    os.makedirs(os.path.dirname(ann))
+    np.savez(
+        ann, imgname=np.array(names),
+        center=rng.rand(n, 2).astype(np.float32) * 200 + 140,
+        scale=np.full(n, 1.0, np.float32),
+        pose=rng.randn(n, 69).astype(np.float32) * 0.2,
+        shape=rng.randn(n, 10).astype(np.float32) * 0.5,
+        global_orient_pv=rng.randn(n, 3).astype(np.float32) * 0.3,
+        transl_pv=np.array([[0.1, 0.2, 2.5]] * n, np.float32),
+        cx=np.full(n, 240.0), cy=np.full(n, 135.0), fx=np.full(n, 750.0), fy=np.full(n, 750.0),
+        valid_keypoints=np.concatenate([rng.rand(n, 25, 2) * 400, np.ones((n, 25, 1))],
+                                       axis=-1).astype(np.float32),
+        **{"3d_joints_pv": rng.randn(n, 25, 3).astype(np.float32) * 0.3 + [0.1, 0.2, 2.5]},
+        gender=np.array(["m", "f"] * (n // 2)))
+    with open(os.path.join(root, "transf_matrices_all_seqs.pkl"), "wb") as f:
+        pickle.dump({TOOLS_RECORDING: {"trans_kinect2holo": np.eye(4, dtype=np.float32),
+                                       "trans_world2pv": {ts: np.eye(4, dtype=np.float32)
+                                                          for ts in stamps}}}, f)
+    with open(os.path.join(root, "data_info_release.csv"), "w") as f:
+        f.write(f"recording_name,scene_name\n{TOOLS_RECORDING},{TOOLS_SCENE}\n")
+    calib = os.path.join(root, "calibrations", TOOLS_RECORDING, "cal_trans", "kinect12_to_world")
+    os.makedirs(calib)
+    with open(os.path.join(calib, f"{TOOLS_SCENE}.json"), "w") as f:
+        json.dump({"trans": np.eye(4).tolist()}, f)
+    for src in ("gt", "pred"):
+        d = os.path.join(root, f"Egohmr_scene_preprocess_cube_s2_from_{src}_release", "test",
+                         TOOLS_RECORDING, TOOLS_HOLO_TIME)
+        os.makedirs(d)
+        for i, ts in enumerate(stamps):
+            cloud = rng.randn(points, 3).astype(np.float32) * [0.6, 0.8, 0.6] + [0.1, 0.2, 2.5]
+            np.save(os.path.join(d, f"{ts}_frame_{i:05d}.npy"), cloud)
+    s1 = os.path.join(root, "Egohmr_scene_preprocess_s1_release")
+    os.makedirs(s1)
+    with open(os.path.join(s1, "pcd_verts_dict_test.pkl"), "wb") as f:
+        pickle.dump({names[0]: rng.randn(points, 3) * [1.5, 0.8, 1.5] + [0.1, 0.2, 2.5]}, f)
+    with open(os.path.join(s1, "map_dict_test.pkl"), "wb") as f:
+        pickle.dump({name: names[0] for name in names}, f)
+
+
+def write_smpl_pkls(path: str) -> None:
+    """SMPL_{NEUTRAL,MALE,FEMALE}.pkl in the official files' layout from the
+    synthetic 6890-vertex bodies of seeds 0, 1 and 2."""
+    import pickle
+
+    from egohmr_tpu_torch.smpl import make_synthetic_model
+
+    os.makedirs(path)
+    for seed, gender in enumerate(("NEUTRAL", "MALE", "FEMALE")):
+        m = make_synthetic_model(seed=seed, num_vertices=V_FULL)
+        with open(os.path.join(path, f"SMPL_{gender}.pkl"), "wb") as f:
+            pickle.dump({
+                "v_template": m.v_template.double().numpy(),
+                "shapedirs": m.shapedirs.double().numpy(),
+                "posedirs": m.posedirs.double().numpy().T.reshape(V_FULL, 3, 207),
+                "J_regressor": m.j_regressor.double().numpy(),
+                "weights": m.lbs_weights.double().numpy(),
+                "f": m.faces.numpy().astype(np.uint32),
+                "kintree_table": np.zeros((2, 24), np.int64)}, f, protocol=2)
+
+
+def run_tool(name: str, argv, counts: dict, held: list):
+    """One entry point of `egohmr_tpu_torch.tools`, in process: K1 and K2
+    counted from 0 by their wrappers over its run (its main path) and every
+    call of either recorded and held to the plain version after it. Returns
+    (its return value, what it printed, seconds)."""
+    import importlib
+    import io
+
+    from egohmr_tpu_torch.collision import knn as k2
+    from egohmr_tpu_torch.nn import pointnet_fused as k1
+
+    entry = importlib.import_module(f"egohmr_tpu_torch.tools.{name}")
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with kernel_calls() as seen:
+        k1.launches = k2.launches = 0  # this tool's main path starts
+        try:
+            with contextlib.redirect_stdout(out):
+                ret = entry.main(argv)
+        except BaseException:
+            print(out.getvalue()[-4000:], file=sys.stderr)
+            raise
+        torch.cuda.synchronize()
+        launches = {"k1": k1.launches, "k2": k2.launches}  # and ends
+    secs = time.perf_counter() - t0
+    for k in ("k1", "k2"):
+        if len(seen[k]) != launches[k]:
+            fail(f"{name}: {launches[k]} {k.upper()} launches, {len(seen[k])} calls recorded")
+        counts[k] += launches[k]
+    held.append(hold_kernel_calls(seen, name))
+    log("tools", f"{name} {' '.join(argv)}: {secs:.1f} s, K1 {launches['k1']} and K2 "
+                 f"{launches['k2']} launches")
+    counts[name] = launches
+    return ret, out.getvalue(), secs
+
+
+def last_json(printed: str) -> dict:
+    lines = [x for x in printed.splitlines() if x.startswith("{")]
+    if not lines:
+        fail(f"no JSON line in: {printed[-2000:]}")
+    return json.loads(lines[-1])
+
+
+def phase_tools() -> dict:
+    """Phase 13: the JAX repo's last five entry points, ported to
+    `egohmr_tpu_torch/tools/`, at full width on the card, in process, on an
+    EgoBody-layout root written here (20 frames, 20,000-point clouds,
+    synthetic SMPL pickles, zero/one stats, random `ProHMR` and `EgoHMR`
+    checkpoints in the reference layout): `real_weights_eval` at its
+    defaults against the same command with `--bf16 false`;
+    `measure_guidance_reuse_deviation --batch 16 --points 20000` with K2's
+    launches per request held to ceil(g / r); `compare_train_precision
+    --steps 200 --eval_every 100`, both runs' losses falling; `probe_gcn` at
+    its defaults; `visualize_results` on the stage-2 `results.pkl`. Every K1
+    and K2 call of these runs is held to its plain version."""
+    import math
+    import pickle
+    import tempfile
+
+    from PIL import Image
+
+    from egohmr_tpu_torch.data import save_stats
+    from egohmr_tpu_torch.eval import test_egohmr as s2cli
+    from egohmr_tpu_torch.models import EgoHMR, EgoHMRConfig, ProHMR, ProHMRConfig
+    from egohmr_tpu_torch.models import init_random_
+    from egohmr_tpu_torch.models.prohmr import init_random_ as init_prohmr_
+
+    t_phase = time.perf_counter()
+    counts, held, res = {"k1": 0, "k2": 0}, [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root, smpl_dir = os.path.join(tmp, "egobody"), os.path.join(tmp, "smpl")
+        write_egobody_root(root)
+        write_smpl_pkls(smpl_dir)
+        ck1, ck2 = os.path.join(tmp, "s1", "53618.pt"), os.path.join(tmp, "s2", "91453.pt")
+        for path, model in ((ck1, init_prohmr_(ProHMR(ProHMRConfig()), seed=3)),
+                            (ck2, init_random_(EgoHMR(EgoHMRConfig()), seed=1))):
+            os.makedirs(os.path.dirname(path))
+            torch.save({"state_dict": model.state_dict()}, path)
+        stats = os.path.join(tmp, "stats", "preprocess_stats.npz")
+        save_stats(stats, np.zeros(144, np.float32), np.ones(144, np.float32))
+        log("tools", f"EgoBody root of {TOOLS_IMAGES} frames and {P_FULL}-point clouds, SMPL "
+                     f"pickles, stats and both checkpoints written in "
+                     f"{time.perf_counter() - t_phase:.1f} s")
+
+        # ---- real_weights_eval at its defaults, and with --bf16 false; the
+        # first run's stage-2 CLI also saves its results.pkl for the viewer
+        argv = ["--stage1_checkpoint", ck1, "--stage2_checkpoint", ck2,
+                "--smpl_model_path", smpl_dir, "--dataset_root", root,
+                "--body_rep_stats", stats]
+        s2_main = s2cli.main
+        s2_saved = os.path.join(tmp, "s2_results")
+        s2cli.main = lambda a: s2_main(a + ["--save_results", "true", "--save_root", s2_saved])
+        try:
+            report, _, secs = run_tool("real_weights_eval", argv + [
+                "--save_root", os.path.join(tmp, "rwe")], counts, held)
+        finally:
+            s2cli.main = s2_main
+        n_batches = TOOLS_IMAGES // 10
+        want = {"k1": 2 * n_batches, "k2": n_batches * (2 + 11)}
+        if counts["real_weights_eval"] != want:
+            fail(f"real_weights_eval: launches {counts['real_weights_eval']}, want {want} (K1 "
+                 "once a batch in each stage, K2 twice a batch and 11 times a guided batch)")
+        f32, _, secs32 = run_tool("real_weights_eval", argv + [
+            "--save_root", os.path.join(tmp, "rwe32"), "--bf16", "false"], counts, held)
+        if counts["real_weights_eval"] != want:
+            fail(f"real_weights_eval --bf16 false: launches {counts['real_weights_eval']}, "
+                 f"want {want}")
+        with open(os.path.join(tmp, "rwe", "report.json")) as f:
+            if json.load(f) != report:
+                fail("real_weights_eval: report.json is not the returned report")
+        for part in ("stage1_metrics_mm", "stage2_metrics"):
+            a, b = report[part], f32[part]
+            if list(a) != list(b):
+                fail(f"real_weights_eval: {part} keys differ between bf16 and f32")
+            for key in a:
+                diff = abs(a[key] - b[key])
+                log("tools", f"real_weights_eval {part} {key}: bf16 {a[key]:.4f}, f32 "
+                             f"{b[key]:.4f}, |diff| {diff:.4f}")
+                if np.isnan(a[key]) != np.isnan(b[key]) or np.isinf(a[key]):
+                    fail(f"real_weights_eval {part} {key}: {a[key]} (f32 run {b[key]})")
+                if ("mpjpe" in key or "v2v" in key) and not diff <= 5.0:
+                    fail(f"real_weights_eval {part} {key}: bf16 {diff:.2f} mm from f32 (bar 5)")
+        res["real_weights_eval"] = {"s": secs, "s_f32": secs32,
+                                    "stage2_g_mpjpe": report["stage2_metrics"]["g_mpjpe"]}
+
+        # ---- the reuse deviation, K2 launches per request verified
+        _, printed, secs = run_tool("measure_guidance_reuse_deviation",
+                                    ["--batch", "16", "--points", str(P_FULL)], counts, held)
+        d = last_json(printed)
+        log("tools", f"measure_guidance_reuse_deviation: {json.dumps(d)}")
+        want = {}
+        for mode, g in REUSE_GUIDED_STEPS.items():
+            want.update({f"{mode}_unguided": 0, f"{mode}_exact": g},
+                        **{f"{mode}_reuse{r}": math.ceil(g / r) for r in REUSE_REFRESH})
+        if d["extra"]["k2_launches"] != want:
+            fail(f"measure_guidance_reuse_deviation: K2 launches {d['extra']['k2_launches']}, "
+                 f"want {want}")
+        for mode, entry in d["modes"].items():
+            for key, figs in entry.items():
+                if not all(np.isfinite(v) and v >= 0 for v in figs.values()):
+                    fail(f"measure_guidance_reuse_deviation {mode} {key}: {figs}")
+        res["measure_guidance_reuse_deviation"] = {"s": secs, "modes": d["modes"]}
+
+        # ---- bf16 against f32 training, both losses falling
+        overlay = os.path.join(tmp, "overlay.json")
+        rc, printed, secs = run_tool("compare_train_precision", [
+            "--steps", str(TOOLS_TRAIN_STEPS), "--eval_every", str(TOOLS_TRAIN_EVAL),
+            "--out", overlay], counts, held)
+        summary = last_json(printed)
+        log("tools", f"compare_train_precision (exit {rc}): {json.dumps(summary)}")
+        if counts["compare_train_precision"] != {"k1": 0, "k2": 2 * TOOLS_TRAIN_STEPS}:
+            fail(f"compare_train_precision: launches {counts['compare_train_precision']}, "
+                 f"want K1 0 and K2 {2 * TOOLS_TRAIN_STEPS} (one a step with the collision loss)")
+        with open(overlay) as f:
+            curves = json.load(f)["train_loss"]
+        for tag, losses in curves.items():
+            first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+            log("tools", f"compare_train_precision {tag}: first 5 steps {first:.4f}, last 5 "
+                         f"{last:.4f} ({last / first:.3f} x)")
+            if not (len(losses) == TOOLS_TRAIN_STEPS and np.isfinite(losses).all()
+                    and last < 0.8 * first):
+                fail(f"compare_train_precision {tag}: the loss does not fall below 0.8 x its "
+                     f"start ({first:.4f} -> {last:.4f})")
+        res["compare_train_precision"] = {"s": secs, "exit": rc, "summary": summary}
+
+        # ---- the denoiser by variant
+        _, printed, secs = run_tool("probe_gcn", [], counts, held)
+        d = last_json(printed)
+        log("tools", f"probe_gcn: {json.dumps(d)}")
+        if set(d["results"]) != {"full", "skeleton", "wcat", "wcat_skel"} or \
+                any(v is None for v in d["kernel_ms"].values()):
+            fail(f"probe_gcn: {d}")
+        res["probe_gcn"] = {"s": secs, **{k: d[k] for k in (
+            "results", "event_ms", "kernel_ms", "launches_per_call", "roofline_ms")}}
+
+        # ---- the stage-2 results rendered in the scene of frame 0
+        pkl = os.path.join(s2_saved, "output_egohmr_s2", "results_seed_0.pkl")
+        with open(pkl, "rb") as f:
+            n_rows = len(pickle.load(f)["pred_betas_list"])
+        scene = os.path.join(tmp, "scene.npy")
+        cube = sorted(os.listdir(os.path.join(
+            root, "Egohmr_scene_preprocess_cube_s2_from_pred_release", "test", TOOLS_RECORDING,
+            TOOLS_HOLO_TIME)))[0]
+        np.save(scene, np.load(os.path.join(
+            root, "Egohmr_scene_preprocess_cube_s2_from_pred_release", "test", TOOLS_RECORDING,
+            TOOLS_HOLO_TIME, cube)))
+        written, _, secs = run_tool("visualize_results", [
+            "--results", pkl, "--smpl_model_path", smpl_dir, "--scene", scene,
+            "--out_dir", os.path.join(tmp, "vis")], counts, held)
+        for path in written:
+            img = np.asarray(Image.open(path)).astype(int)
+            # the body's cyan, shaded: green and blue alike, both well above red
+            # (the scene is grey, the axes red, green and blue)
+            r, g, b = img[..., 0], img[..., 1], img[..., 2]
+            body = (g > r + 40) & (b > r + 40) & (np.abs(g - b) < 30)
+            log("tools", f"visualize_results: {os.path.basename(path)} {img.shape}, "
+                         f"{int(body.sum())} body-coloured pixels")
+            # the orbit views look at the body; the camera's may not see it
+            if img.shape != (540, 960, 3) or ("camera" not in path and not body.any()):
+                fail(f"visualize_results: {path} is {img.shape}, {int(body.sum())} body pixels")
+        if n_rows != TOOLS_IMAGES or len(written) != 3:
+            fail(f"visualize_results: {len(written)} renders of a {n_rows}-image results.pkl")
+        res["visualize_results"] = {"s": secs}
+    for line in held:
+        log("tools", line)
+    secs = time.perf_counter() - t_phase
+    log("tools", f"phase 13 in {secs:.1f} s; K1 {counts['k1']} and K2 {counts['k2']} launches")
+    res.update(k1=counts["k1"], k2=counts["k2"], s=secs,
+               launches={k: v for k, v in counts.items() if k not in ("k1", "k2")})
+    return res
+
+
 def main() -> None:
     smi = phase_device()
     from egohmr_tpu_torch.models import EgoHMRConfig
@@ -3169,21 +3506,26 @@ def main() -> None:
     parallel = phase_parallel(cfg)
     tensor_parallel = phase_tp(cfg)
     benched = phase_bench()
+    tools = phase_tools()
     # launches: over the main paths, each counted from 0 just before it (K3's
     # main path is the probe's own entry point, counted in its phase)
     kernels[0].update(launches=(unguided + guided["k1"] + evaluated["k1"] + trained["k1"]
                                 + stage1["launches"] + stage1["train_launches"] + learned["k1"]
-                                + parallel["k1"] + tensor_parallel["k1"] + benched["k1"]),
+                                + parallel["k1"] + tensor_parallel["k1"] + benched["k1"]
+                                + tools["k1"]),
                       launches_learned=learned["k1"], launches_parallel=parallel["k1"],
                       launches_tp=tensor_parallel["k1"], launches_bench=benched["k1"],
+                      launches_tools=tools["k1"],
                       launches_unguided=unguided, launches_guided=guided["k1"],
                       launches_eval=evaluated["k1"], launches_train=trained["k1"],
                       launches_stage1=stage1["launches"],
                       launches_stage1_train=stage1["train_launches"], stage1=stage1["k1"])
     kernels[1].update(launches=(guided["k2"] + evaluated["k2"] + trained["k2"] + learned["k2"]
-                                + parallel["k2"] + tensor_parallel["k2"] + benched["k2"]),
+                                + parallel["k2"] + tensor_parallel["k2"] + benched["k2"]
+                                + tools["k2"]),
                       launches_learned=learned["k2"], launches_parallel=parallel["k2"],
                       launches_tp=tensor_parallel["k2"], launches_bench=benched["k2"],
+                      launches_tools=tools["k2"],
                       parallel_collision_shape=parallel["k2_collision_shape"],
                       distill_label_shapes=learned["k2_label_shapes"],
                       launches_unguided=0, launches_guided=guided["k2"],

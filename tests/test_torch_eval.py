@@ -4,7 +4,6 @@ slice as a whole: the port's `eval.test_egohmr.main` against egohmr_tpu's on
 the same weights, batches and starting noise."""
 import os
 import pickle
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -286,8 +285,8 @@ def test_cli_as_a_whole_matches_jax(tmp_path, monkeypatch, capsys, guided, nonlo
     (`synthetic_batch(seed=100)`) and the same x_T (the one the JAX CLI's
     key chain draws, handed to the port as `noise`). Summary keys equal,
     values within rtol 1e-3; the `results.pkl` each writes holds the same
-    keys and shapes and the same bodies, and the viewer tool reads the
-    port's. `nonlocal`: `--gcn_nonlocal_layer true`, with the block's output
+    keys and shapes and the same bodies, and the port's viewer tool reads
+    the port's file. `nonlocal`: `--gcn_nonlocal_layer true`, with the block's output
     BatchNorm drawn at random in both trees (its init, scale 0, makes the
     block the identity)."""
     args = CLI_ARGS + ["--with_coap_grad", "true" if guided else "false",
@@ -340,12 +339,11 @@ def test_cli_as_a_whole_matches_jax(tmp_path, monkeypatch, capsys, guided, nonlo
         assert rt[k].shape == rj[k].shape and rt[k].dtype == rj[k].dtype, k
         np.testing.assert_allclose(rt[k], rj[k], rtol=1e-3, atol=1e-4, err_msg=k)
 
-    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
-    import visualize_results as vr
+    from egohmr_tpu_torch.tools import visualize_results as vr
 
     written = vr.main(["--results", os.path.join(save_t, rel), "--synthetic_smpl",
                        "--indices", "0", "--views", "camera", "--img_size", "320", "180",
-                       "--out_dir", str(tmp_path / "vis")])
+                       "--out_dir", str(tmp_path / "vis"), "--device", "cpu"])
     assert len(written) == 1 and os.path.exists(written[0])
 
 

@@ -269,7 +269,9 @@ def test_port_never_imports_jax():
             "eval/test_egohmr_volsmpl.py", "train/distill_occupancy.py",
             "train/distill_sdf.py", "parallel/__init__.py", "parallel/mesh.py",
             "utils/device.py", "bench.py", "tools/profile_serving.py",
-            "tools/probe_guided_backward.py"} <= walked
+            "tools/probe_guided_backward.py", "tools/real_weights_eval.py",
+            "tools/visualize_results.py", "tools/measure_guidance_reuse_deviation.py",
+            "tools/compare_train_precision.py", "tools/probe_gcn.py"} <= walked
     for f in sources:
         for node in ast.walk(ast.parse(open(f).read())):
             names = ([a.name for a in node.names] if isinstance(node, ast.Import)
@@ -299,6 +301,9 @@ def test_port_never_imports_jax():
         "import egohmr_tpu_torch.parallel, egohmr_tpu_torch.utils.device\n"
         "import egohmr_tpu_torch.bench, egohmr_tpu_torch.tools.profile_serving\n"
         "import egohmr_tpu_torch.tools.probe_guided_backward\n"
+        "from egohmr_tpu_torch.tools import real_weights_eval, visualize_results, probe_gcn\n"
+        "from egohmr_tpu_torch.tools import measure_guidance_reuse_deviation\n"
+        "from egohmr_tpu_torch.tools import compare_train_precision\n"
         "assert 'jax' not in sys.modules and 'egohmr_tpu' not in sys.modules\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
