@@ -115,7 +115,11 @@ Phases (any failure exits non-zero):
                K2 in the guided, training and probe runs; before each
                request program is timed, one untimed request of it runs
                under the recorder and every K1 and K2 call of it is held to
-               its plain version
+               its plain version; where the mode captures the program, a
+               second eager run and one replay of the same request follow,
+               the replay held to the eager run bit for bit (or within
+               twice the two eager runs' gap) and its K1 and K2 launches to
+               the eager run's calls by the device's kernels
  13. tools   — the JAX repo's last entry points, ported to
                `egohmr_tpu_torch/tools/`, at full width, in process, on an
                EgoBody-layout root written here (20 frames, 20,000-point
@@ -130,6 +134,33 @@ Phases (any failure exits non-zero):
                `probe_gcn` at its defaults; `visualize_results` on the
                stage-2 `results.pkl`. Every K1 and K2 call of these runs is
                held to its plain version
+ 14. graphs  — the served request as one captured CUDA graph per shape
+               (`utils/graphs.py`, behind `Predictor`) at full width: (a)
+               unguided DDIM-5 at 64, bf16 and f32, replayed requests equal
+               to `Predictor.eager` bit for bit on 3 seeds and after
+               another shape's capture, K1 once a request; (b) guided
+               DDIM-5 at 64 and DDPM-50 at 16 on phase 5's scenes at its
+               raised weights: two eager runs of one seed compared first,
+               replay then bit for bit where they agree (else within twice
+               their gap), K1 1 and K2 4 and 11 a request by the replay
+               accounting and by the device's kernels; (c) the profiler on a replayed and an
+               eager request of each: host launch calls, device kernels,
+               kernel ms; (d) submit, blocking and steady-state ms per
+               request, eager against graphed, three rounds in turns, with
+               each program's capture seconds and pool bytes
+On the card every `Predictor` of phases 4, 5, 10 and 11 (one device or flat
+replicas) and `bench`'s request modes in phase 12 run their captured
+programs: a replayed launch calls no wrapper, so K1's and K2's counts come
+from the replay accounting (a wrapper called during a capture counts one
+launch per replay of it, `utils/graphs.py:count_launch`), and the phases
+count from after `warmup()`, whose eager warm-up runs launch for real. In
+each of these phases' counted runs one replayed request of every program
+(phase 14: every counted request) runs under the profiler, and its K1 and
+K2 launches by the accounting must equal those counted from the device's
+kernels (K1's four stage kernels, K2's search kernel): the kernels line's
+`launches_profiled`. Kernel calls are watched in eager requests
+(`Predictor.eager`, the request hook's `program.eager`), and replayed ones
+are held to them through replay's bit-equality with eager.
 Before the last line come a JSON object with one entry per kernel and the
 card's name and power limit; the last line is {"ok": true, "device":
 {...}}. Nothing runs without a GPU.
@@ -175,6 +206,76 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+# K1's and K2's device kernels per wrapper call: K1 is four stage and four
+# context kernels, K2 one search kernel (and, split, a combine kernel)
+DEVICE_KERNELS = {"k1": ("stage_kernel", 4), "k2": ("nearest_vertex_kernel", 1)}
+# K1's and K2's launches in the main paths' requests run under the
+# profiler, counted from the device's kernels (`profiled_launches`)
+PROFILED = {"k1": 0, "k2": 0}
+
+
+def launches_on_device(prof) -> dict:
+    """K1's and K2's wrapper calls in a profiler session, counted from the
+    device kernels it recorded, inside graph replays too."""
+    import re
+
+    out = {}
+    for k, (kernel, per_call) in DEVICE_KERNELS.items():
+        n = sum(e.count for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and re.search(rf"\b{kernel}\b", e.key))
+        if n % per_call:
+            fail(f"{n} {kernel} launches on the device, not {per_call} per {k.upper()} call")
+        out[k] = n // per_call
+    return out
+
+
+def profiled_launches(request, what: str, want: dict = None):
+    """`request()` on a synchronised card under the profiler: its result and
+    K1's and K2's launches in it, counted from the device's kernels. Fails
+    unless the wrappers' counts (for a replayed request, its program's
+    replay accounting) equal them, and `want` where given. Adds them to
+    PROFILED."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from egohmr_tpu_torch.collision import knn as k2
+    from egohmr_tpu_torch.nn import pointnet_fused as k1
+
+    torch.cuda.synchronize()
+    b1, b2 = k1.launches, k2.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = request()
+        torch.cuda.synchronize()
+    counted = {"k1": k1.launches - b1, "k2": k2.launches - b2}
+    device = launches_on_device(prof)
+    if counted != device or (want is not None and device != want):
+        fail(f"{what}: K1 and K2 launches {counted} by the wrappers' counts, {device} by the "
+             "device kernels under the profiler" + (f" (want {want})" if want else ""))
+    for k in PROFILED:
+        PROFILED[k] += device[k]
+    return out, device
+
+
+def max_gap(a, b) -> float:
+    """The largest |a - b| over two results of one structure (dicts, lists,
+    tensors, arrays); 0.0 is bit for bit."""
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            fail(f"result keys differ: {sorted(a)} vs {sorted(b)}")
+        return max((max_gap(a[k], b[k]) for k in a), default=0.0)
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            fail(f"result lengths differ: {len(a)} vs {len(b)}")
+        return max((max_gap(x, y) for x, y in zip(a, b)), default=0.0)
+    a = a.detach().cpu().double().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    b = b.detach().cpu().double().numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
+    if a.shape != b.shape:
+        fail(f"result shapes differ: {a.shape} vs {b.shape}")
+    if not np.isfinite(a).all():
+        fail(f"non-finite values in a result of shape {a.shape}")
+    return float(np.abs(a.astype(np.float64) - b).max()) if a.size else 0.0
 
 
 def phase_device() -> str:
@@ -585,7 +686,9 @@ def phase_serve(cfg) -> int:
     short = {k: ({kk: vv[:40] for kk, vv in v.items()} if isinstance(v, dict)
                  else v[:40]) for k, v in full.items()}
     stream = [synthetic_batch(B, num_scene_points=P_FULL, seed=12 + i) for i in range(3)]
-    pred(full)  # warm-up: cuDNN algorithm selection, allocator growth
+    pred.warmup(full)  # captures the request's program (cuDNN, K1's weights, the pool)
+    if not pred.captured:
+        fail("the one-device Predictor on the card is not captured")
     torch.cuda.synchronize()
     log("serve", f"ResNet-{cfg.resnet_layers}, img_feat {cfg.img_feat_dim}, PointNet H="
                  f"{cfg.pointnet_hidden_dim}, GCN {cfg.gcn_hid_dim}x{cfg.gcn_layers}, V={V}, "
@@ -624,6 +727,13 @@ def phase_serve(cfg) -> int:
     log("serve", f"map_batches: {len(stream)} requests of {B} in {ms:.1f} ms "
                  f"({len(stream) * B / ms * 1e3:.1f} bodies/s, {ms / len(stream):.1f} ms "
                  f"per request), K1 launches {k1.launches - before}")
+    # a replayed request's launches by the replay accounting against the
+    # device's kernels
+    out, _ = profiled_launches(lambda: pred(full, seed=2), "serve: a replayed request",
+                               want={"k1": 1, "k2": 0})
+    check(out, B)
+    log("serve", "a replayed request under the profiler: K1 1 launch by the replay accounting "
+                 "and by the device's kernels")
     launches = k1.launches  # main path ends
     if k2.launches != 0:
         fail(f"the unguided path launched K2 {k2.launches} times")
@@ -785,7 +895,7 @@ def phase_guided(cfg) -> dict:
         batch = synthetic_batch(B, num_scene_points=P_FULL, seed=20)
         batch = penetrated(batch, free(batch, seed=1), leg)
         pred = predictor(sampler, schedule, B, with_guidance=True)
-        pred(batch)  # warm-up: cuDNN algorithm selection, allocator growth
+        pred.warmup(batch)  # captures the request's program
         served.append((pred, batch, free))
     torch.cuda.synchronize()
 
@@ -809,6 +919,14 @@ def phase_guided(cfg) -> dict:
                      f"(want {n_guided}, one per guided step)")
             if n == B:
                 served[i] = (pred, batch, free, out)
+        # a replayed request's launches by the replay accounting against the
+        # device's kernels
+        out, _ = profiled_launches(lambda: pred(batch, seed=2),
+                                   f"guided {sampler}: a replayed request",
+                                   want={"k1": 1, "k2": n_guided})
+        check(out, B)
+        log("guided", f"{sampler}: a replayed request under the profiler: K1 1, K2 {n_guided} "
+                      "launches by the replay accounting and by the device's kernels")
     counts = {"k1": k1.launches, "k2": k2.launches}  # main path ends
 
     # Guidance acted. With random weights the denoiser's x0 barely follows
@@ -918,17 +1036,11 @@ def breakdown(name: str, pred, batch, n_guided: int) -> None:
         for label, fn in parts.items():
             log("guided", f"{name}: {label}: {time_ms(fn, reps=5):.3f} ms")
 
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        pred(batch, seed=1)
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    kernel_ms = sum(e.self_device_time_total for e in events) / 1e3
-    n_kernels = sum(e.count for e in events)
-    if kernel_ms > 0:
-        log("guided", f"{name}: one request under the profiler: {kernel_ms:.1f} ms of kernels "
-                      f"and copies in {n_kernels} launches ({n_guided} guided steps)")
+    p = graph_profile(lambda: pred(batch, seed=1))
+    if p["kernel_ms"] > 0:
+        log("guided", f"{name}: one replayed request under the profiler: {p['kernel_ms']:.1f} ms "
+                      f"of kernels and copies in {p['device_kernels']} device launches "
+                      f"({n_guided} guided steps), host launch calls {p['host']}")
     else:
         log("guided", f"{name}: the profiler recorded no device time: not measured")
 
@@ -2777,28 +2889,40 @@ def dp_predictor(cfg) -> dict:
         for tag, device in (("1 device", dev), ("2 replicas", [dev, dev])):
             pred = Predictor(copy.deepcopy(model), cfg, smpl, stats, schedule, device=device,
                              batch_size=B_TIME, **kw)
-            pred(batch, seed=1)  # warm-up
+            pred.warmup(batch)  # captures each replica's request program
+            # the kernel calls are watched in an eager request; the replayed
+            # ones are held to them through replay's equality with eager
             with kernel_calls() as seen:
-                k1.launches = 0  # main path starts: count launches from here
-                times = []
-                for _ in range(3):
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    outs[tag] = pred(batch, seed=1)
-                    times.append((time.perf_counter() - t0) * 1e3)
-                launched = k1.launches  # main path ends
-            if len(seen["k1"]) != launched or seen["k2"]:
-                fail(f"(d) {name}, {tag}: {len(seen['k1'])} K1 calls recorded for {launched} "
-                     f"launches, {len(seen['k2'])} K2 calls (want 0)")
-            if launched:
+                eager = pred.eager(batch, seed=1)
+            k1.launches = 0  # main path starts: count launches from here
+            # one replayed request under the profiler: the replay accounting
+            # against the device's kernels and the eager request's calls
+            profiled_launches(lambda: pred(batch, seed=1), f"(d) {name}, {tag}",
+                              want={"k1": len(seen["k1"]), "k2": 0})
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs[tag] = pred(batch, seed=1)
+                times.append((time.perf_counter() - t0) * 1e3)
+            launched = k1.launches  # main path ends
+            if 4 * len(seen["k1"]) != launched or seen["k2"]:
+                fail(f"(d) {name}, {tag}: {len(seen['k1'])} K1 calls recorded in an eager "
+                     f"request for {launched} launches in 4 replayed ones, "
+                     f"{len(seen['k2'])} K2 calls (want 0)")
+            if seen["k1"]:
                 lines.append(hold_kernel_calls(seen, f"(d) {name}, {tag}"))
+            replay_gap = max_gap(outs[tag], eager)
+            if replay_gap != 0:
+                fail(f"(d) {name}, {tag}: a replayed request differs from the eager one by "
+                     f"{replay_gap:.3e}")
             del seen
             if tag == "2 replicas":
                 res["k1"] += launched
             res[f"{name} {tag} ms"] = float(np.median(times))
-            want_k1 = 0 if name == "f32 plain" else 3 * (2 if tag == "2 replicas" else 1)
+            want_k1 = 0 if name == "f32 plain" else 4 * (2 if tag == "2 replicas" else 1)
             if launched != want_k1:
-                fail(f"(d) {name}, {tag}: K1 launched {launched} times in 3 requests "
+                fail(f"(d) {name}, {tag}: K1 launched {launched} times in 4 requests "
                      f"(want {want_k1})")
             del pred
         a, b = outs["2 replicas"], outs["1 device"]
@@ -3132,7 +3256,10 @@ def phase_bench() -> dict:
     non-null result), its K1 and K2 launches counted from 0 by the
     wrappers, and, through the entry points' request hook, one untimed
     request of every request program it times recorded and each of its K1
-    and K2 calls held to the plain version."""
+    and K2 calls held to the plain version; where the program is captured,
+    its replay held to that eager request (bit for bit, or within twice
+    the gap of two eager runs) and its launches, under the profiler, to
+    the eager request's calls."""
     import importlib
     import io
 
@@ -3146,11 +3273,29 @@ def phase_bench() -> dict:
 
         def hold(request_name, request):
             with kernel_calls() as seen:
-                request()
+                want = request()
                 torch.cuda.synchronize()
             for k in recorded:
                 recorded[k] += len(seen[k])
             held.append(hold_kernel_calls(seen, f"{name}, {request_name}"))
+            if request.replay is None:  # a mode that runs eagerly
+                return
+            # the replayed request against the eager one: bit for bit where
+            # two eager runs agree, else within twice their gap; its launches
+            # by the replay accounting against the device's kernels and the
+            # eager request's calls
+            eager_gap = max_gap(request(), want)
+            request.replay()  # the first replay captures, outside the profiler
+            got, _ = profiled_launches(request.replay, f"bench {name}, {request_name}",
+                                       want={k: len(v) for k, v in seen.items()})
+            gap = max_gap(got, want)
+            bar = 0.0 if eager_gap == 0 else 2 * eager_gap
+            held.append(f"{name}, {request_name}: replayed against eager max |diff| {gap:.3e}, "
+                        f"eager against eager {eager_gap:.3e} (bar {bar:.3e}); launches by the "
+                        f"replay accounting and by the device's kernels K1 {len(seen['k1'])}, "
+                        f"K2 {len(seen['k2'])}")
+            if gap > bar:
+                fail(held[-1])
 
         out = io.StringIO()
         t0 = time.perf_counter()
@@ -3490,42 +3635,256 @@ def phase_tools() -> dict:
     return res
 
 
+# phase 14: the captured request programs
+GRAPH_SEEDS = (1, 2, 3)
+GRAPH_ROUNDS = 3
+# requests in the short and the long stream of (d): an eager guided DDPM-50
+# request takes some 0.7 s, a replayed one some 60 ms
+GRAPH_STREAM = {"eager": (2, 4), "graphed": (4, 12)}
+
+
+def graph_stream(pred, batch, n: int, eager: bool, seed0: int) -> float:
+    """`map_batches`' window over `n` requests of `batch`, through the
+    captured program or eagerly: host seconds to the last result."""
+    from collections import deque
+
+    t0 = time.perf_counter()
+    window = deque()
+    for i in range(n):
+        window.append(pred._submit(batch, seed0 + i, eager))
+        if len(window) >= pred.max_inflight:
+            pred.result(window.popleft())
+    while window:
+        pred.result(window.popleft())
+    return time.perf_counter() - t0
+
+
+def graph_times(pred, batch) -> dict:
+    """(d): per request, eager against graphed, GRAPH_ROUNDS rounds each in
+    turns: the host's submit ms (queueing only, p50 of 3), blocking ms
+    (p50 of 3) and steady-state ms by stream-length differencing (streams
+    of GRAPH_STREAM requests, `max_inflight` 4)."""
+    out = {"eager": [], "graphed": []}
+    for r in range(GRAPH_ROUNDS):
+        for mode in ("eager", "graphed"):
+            eager = mode == "eager"
+            n1, n2 = GRAPH_STREAM[mode]
+            torch.cuda.synchronize()
+            sub = []
+            for i in range(3):
+                t0 = time.perf_counter()
+                pending = pred._submit(batch, 100 + i, eager)
+                sub.append((time.perf_counter() - t0) * 1e3)
+                pred.result(pending)
+            block = []
+            for i in range(3):
+                t0 = time.perf_counter()
+                pred.result(pred._submit(batch, 200 + i, eager))
+                block.append((time.perf_counter() - t0) * 1e3)
+            t1 = graph_stream(pred, batch, n1, eager, 300)
+            t2 = graph_stream(pred, batch, n2, eager, 400)
+            out[mode].append({"submit_ms": float(np.median(sub)),
+                              "blocking_ms": float(np.median(block)),
+                              "steady_ms": (t2 - t1) / (n2 - n1) * 1e3})
+    return out
+
+
+def graph_profile(request) -> dict:
+    """One blocking request under the profiler: the host's launch calls
+    (graph launches, kernel launches, copies), the device's kernels and
+    copies and their ms, and K1's and K2's launches counted from them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from egohmr_tpu_torch.utils.profiling import device_kernels, host_launches
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        request()
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    return {"host": host_launches(prof), "device_kernels": kernels["count"],
+            "kernel_ms": kernels["ms"], "launches": launches_on_device(prof)}
+
+
+def phase_graphs(cfg, smi: str) -> dict:
+    """Phase 14: the served request as one captured CUDA graph per shape
+    (`utils/graphs.py`, behind `Predictor`), at full width. (a) unguided
+    DDIM-5 at 64, bf16 and f32: replayed requests equal `Predictor.eager`
+    on the same seeds bit for bit, also after a capture of another shape;
+    K1 once per request by the replay accounting. (b) guided DDIM-5 at 64
+    and guided DDPM-50 at 16, bf16, on phase 5's closed body and penetrated
+    scenes at its raised weights (so that the guided steps move the
+    bodies): two eager runs of one seed first; replay then equals eager bit
+    for bit where those two do, else stays within twice their gap; K2 4
+    and 11 per request by the replay accounting and by the profiler. (c)
+    the profiler on one replayed and one eager request of each. (d) host
+    submit, blocking and steady-state ms per request, eager against
+    graphed, in turns; each program's capture seconds and pool bytes."""
+    from egohmr_tpu_torch.collision import knn as k2
+    from egohmr_tpu_torch.data import synthetic_batch
+    from egohmr_tpu_torch.diffusion import GuidanceConfig, make_schedule
+    from egohmr_tpu_torch.geometry import rotmat_to_rot6d
+    from egohmr_tpu_torch.models import BodyRepStats, EgoHMR, init_random_
+    from egohmr_tpu_torch.nn import pointnet_fused as k1
+    from egohmr_tpu_torch.serving import MESH_OUTPUT_KEYS, Predictor
+    from egohmr_tpu_torch.smpl import make_synthetic_model
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    model = init_random_(EgoHMR(cfg), seed=0).eval()
+    res = {"k1": 0, "k2": 0, "runs": {}}
+    log("graphs", smi)
+
+    def record(name, pred, batch, extra):
+        prof_graph = graph_profile(lambda: pred(batch, seed=7))
+        prof_eager = graph_profile(lambda: pred.eager(batch, seed=7))
+        times = graph_times(pred, batch)
+        prog = pred._programs[0]
+        run = {"capture_s": prog.capture_seconds, "pool_bytes": prog.pool_bytes,
+               "programs": len(prog.programs), "profile_graphed": prof_graph,
+               "profile_eager": prof_eager, "times": times, **extra}
+        res["runs"][name] = run
+        log("graphs", f"{name}: captured {run['programs']} program(s) in {run['capture_s']:.2f} s "
+                      f"(warm-up runs included), pools {run['pool_bytes'] / 2 ** 20:.0f} MiB")
+        for tag, p in (("replayed", prof_graph), ("eager", prof_eager)):
+            log("graphs", f"{name}, one {tag} request under the profiler: host launch calls "
+                          f"{p['host']}, device kernels and copies {p['device_kernels']} "
+                          f"({p['kernel_ms']:.2f} ms), K1 and K2 launches by the device's "
+                          f"kernels {p['launches']}")
+        for mode, rounds in times.items():
+            log("graphs", f"{name}, {mode}, ms per request over {GRAPH_ROUNDS} rounds: submit "
+                          + ", ".join(f"{r['submit_ms']:.2f}" for r in rounds) + "; blocking "
+                          + ", ".join(f"{r['blocking_ms']:.2f}" for r in rounds) + "; steady "
+                          + ", ".join(f"{r['steady_ms']:.2f}" for r in rounds))
+        return prof_graph
+
+    # (a) unguided DDIM-5 at 64, bf16 and f32
+    smpl = make_synthetic_model(num_vertices=V_FULL)
+    stats = BodyRepStats(torch.zeros(144), torch.ones(144))
+    schedule = make_schedule(50, "cosine", "ddim5")
+    batch = synthetic_batch(B_TIME, num_scene_points=P_FULL, seed=10)
+    other = synthetic_batch(B_TIME, num_scene_points=P_FULL // 2, seed=11)
+    for bf16 in (True, False):
+        name = f"(a) unguided DDIM-5, batch {B_TIME}, {'bf16' if bf16 else 'f32'}"
+        pred = Predictor(model, cfg, smpl, stats, schedule, device=dev, batch_size=B_TIME,
+                         bf16=bf16, pointnet_impl="fused")
+        if not pred.captured:
+            fail(f"{name}: the one-device Predictor on the card is not captured")
+        pred.warmup(batch)
+        k1.launches = k2.launches = 0  # main path starts: count launches from here
+        # under the profiler: the replay accounting against the device's kernels
+        got, _ = profiled_launches(lambda: [pred(batch, seed=s) for s in GRAPH_SEEDS], name,
+                                   want={"k1": len(GRAPH_SEEDS), "k2": 0})
+        d1, d2 = k1.launches, k2.launches  # main path ends
+        res["k1"] += d1
+        gaps = [max_gap(g, pred.eager(batch, seed=s)) for g, s in zip(got, GRAPH_SEEDS)]
+        pred.warmup(other)  # a second shape, a second program
+        after = max_gap(pred(batch, seed=4), pred.eager(batch, seed=4))
+        n_prog = len(pred._programs[0].programs)
+        log("graphs", f"{name}: replay against eager on seeds {GRAPH_SEEDS}: max |diff| "
+                      f"{', '.join(f'{g:.3e}' for g in gaps)} (bar: 0, bit for bit); after "
+                      f"capturing P={P_FULL // 2}: {after:.3e}, {n_prog} programs; K1 {d1} "
+                      f"launches in {len(GRAPH_SEEDS)} replayed requests by the replay "
+                      "accounting and by the device's kernels")
+        if max(gaps) != 0 or after != 0 or n_prog != 2:
+            fail(f"{name}: a replayed request differs from its eager run")
+        record(name, pred, batch, {"replay_vs_eager": gaps, "after_other_shape": after})
+        del pred
+        torch.cuda.empty_cache()
+
+    # (b) guided DDIM-5 at 64 and DDPM-50 at 16 on phase 5's scenes
+    body = closed_body_model()
+    leg = np.isin(body.lbs_weights.numpy().argmax(1), LEG_JOINTS)
+    rest = rotmat_to_rot6d(torch.eye(3).expand(24, 3, 3)).reshape(144)
+    gstats = BodyRepStats(rest, torch.full((144,), 0.2))
+    for sampler, respacing, B, n_guided in (("ddim", "ddim5", 64, 4), ("ddpm", "", 16, 11)):
+        schedule = make_schedule(50, "cosine", respacing)
+        name = f"(b) guided {sampler.upper()}-{schedule.num_timesteps}, batch {B}, bf16"
+        kw = dict(device=dev, batch_size=B, sampler=sampler, pointnet_impl="fused",
+                  output_keys=MESH_OUTPUT_KEYS)
+        free = Predictor(model, cfg, body, gstats, schedule, **kw)
+        scene = synthetic_batch(B, num_scene_points=P_FULL, seed=20)
+        scene = penetrated(scene, free.eager(scene, seed=1), leg)
+        del free
+        pred = Predictor(model, cfg, body, gstats, schedule, with_guidance=True,
+                         guidance=GuidanceConfig(**RAISED[sampler]), **kw)
+        e1, e2 = pred.eager(scene, seed=1), pred.eager(scene, seed=1)
+        eager_gap = max_gap(e1, e2)
+        pred.warmup(scene)
+        k1.launches = k2.launches = 0  # main path starts: count launches from here
+        # under the profiler: the replay accounting against the device's kernels
+        got, _ = profiled_launches(lambda: pred(scene, seed=1), name,
+                                   want={"k1": 1, "k2": n_guided})
+        d1, d2 = k1.launches, k2.launches  # main path ends
+        res["k1"] += d1
+        res["k2"] += d2
+        gap = max_gap(got, e1)
+        bar = 0.0 if eager_gap == 0 else 2 * eager_gap
+        record(name, pred, scene, {"eager_vs_eager": eager_gap, "replay_vs_eager": gap,
+                                   "k2_per_request": d2})
+        log("graphs", f"{name}, raised weights {RAISED[sampler]}: eager against eager max "
+                      f"|diff| {eager_gap:.3e}, replay against eager {gap:.3e} (bar "
+                      f"{bar:.3e}: {'bit for bit' if bar == 0 else 'twice the eager gap'}); "
+                      f"K1 {d1}, K2 {d2} launches by the replay accounting and by the "
+                      f"device's kernels (want 1, {n_guided})")
+        if gap > bar:
+            fail(f"{name}: the replayed request strays from the eager one")
+        del pred
+        torch.cuda.empty_cache()
+    log("graphs", f"phase 14 in {time.perf_counter() - t_phase:.1f} s")
+    log("graphs", json.dumps(res["runs"]))
+    return res
+
+
 def main() -> None:
     smi = phase_device()
     from egohmr_tpu_torch.models import EgoHMRConfig
 
     cfg = EgoHMRConfig()  # full width: ResNet-50, H=256, GCN 1024x4
-    phase_build()
-    kernels = [phase_kernel_k1(cfg), phase_kernel_k2(), phase_kernel_k3()]
-    unguided = phase_serve(cfg)
-    guided = phase_guided(cfg)
-    evaluated = phase_eval(cfg)
-    trained = phase_train(cfg)
-    stage1 = phase_stage1()
-    learned = phase_learned(cfg)
-    parallel = phase_parallel(cfg)
-    tensor_parallel = phase_tp(cfg)
-    benched = phase_bench()
-    tools = phase_tools()
+    seconds = {}
+
+    def timed(name, phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    timed("build", phase_build)
+    kernels = timed("kernel", lambda: [phase_kernel_k1(cfg), phase_kernel_k2(),
+                                       phase_kernel_k3()])
+    unguided = timed("serve", phase_serve, cfg)
+    guided = timed("guided", phase_guided, cfg)
+    evaluated = timed("eval", phase_eval, cfg)
+    trained = timed("train", phase_train, cfg)
+    stage1 = timed("stage1", phase_stage1)
+    learned = timed("learned", phase_learned, cfg)
+    parallel = timed("parallel", phase_parallel, cfg)
+    tensor_parallel = timed("tp", phase_tp, cfg)
+    benched = timed("bench", phase_bench)
+    tools = timed("tools", phase_tools)
+    graphs = timed("graphs", phase_graphs, cfg, smi)
+    log("main", f"seconds per phase: {json.dumps(seconds)}")
     # launches: over the main paths, each counted from 0 just before it (K3's
     # main path is the probe's own entry point, counted in its phase)
     kernels[0].update(launches=(unguided + guided["k1"] + evaluated["k1"] + trained["k1"]
                                 + stage1["launches"] + stage1["train_launches"] + learned["k1"]
                                 + parallel["k1"] + tensor_parallel["k1"] + benched["k1"]
-                                + tools["k1"]),
+                                + tools["k1"] + graphs["k1"]),
                       launches_learned=learned["k1"], launches_parallel=parallel["k1"],
                       launches_tp=tensor_parallel["k1"], launches_bench=benched["k1"],
-                      launches_tools=tools["k1"],
+                      launches_tools=tools["k1"], launches_graphs=graphs["k1"],
+                      launches_profiled=PROFILED["k1"],
                       launches_unguided=unguided, launches_guided=guided["k1"],
                       launches_eval=evaluated["k1"], launches_train=trained["k1"],
                       launches_stage1=stage1["launches"],
                       launches_stage1_train=stage1["train_launches"], stage1=stage1["k1"])
     kernels[1].update(launches=(guided["k2"] + evaluated["k2"] + trained["k2"] + learned["k2"]
                                 + parallel["k2"] + tensor_parallel["k2"] + benched["k2"]
-                                + tools["k2"]),
+                                + tools["k2"] + graphs["k2"]),
                       launches_learned=learned["k2"], launches_parallel=parallel["k2"],
                       launches_tp=tensor_parallel["k2"], launches_bench=benched["k2"],
-                      launches_tools=tools["k2"],
+                      launches_tools=tools["k2"], launches_graphs=graphs["k2"],
+                      launches_profiled=PROFILED["k2"],
                       parallel_collision_shape=parallel["k2_collision_shape"],
                       distill_label_shapes=learned["k2_label_shapes"],
                       launches_unguided=0, launches_guided=guided["k2"],

@@ -26,6 +26,17 @@ Prints ONE JSON line, `{"metric": ..., "value": N, "unit": ...,
   --host         host_pipeline_imgs_per_sec: JPEG decode + crop warp +
                  normalise on 1920x1080 frames.
 
+On the card each request program runs as one captured CUDA graph per
+shape (`utils/graphs.py:CapturedProgram`), as the JAX bench jits its
+programs: the default mode's fused request, the reference architecture's
+step and final outputs, the guided modes' `sample_bodies`, and the serving
+layer's request (`Predictor`). x_T and the steps' noise are drawn eagerly
+from the request's generator and copied in. The request hook gets each
+program's request eagerly (`program.eager`), so that every kernel call of
+it can be watched, and replayed, so that the replay can be held to it.
+`--train` runs eagerly. `extra.capture` holds the captures'
+seconds and the graphs' pool bytes.
+
 Throughput is steady state by chain-length differencing
 (`_chain_throughput`). Every result names its device: the card's name and
 power limit as `nvidia-smi` prints them, or "cpu". Without a CUDA device
@@ -37,6 +48,7 @@ shapes, a smoke test.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -46,6 +58,8 @@ from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from .utils.graphs import CapturedProgram
 
 # the tiny widths of --quick (ResNet-18: the port has no stub backbone)
 QUICK = dict(resnet_layers=18, img_feat_dim=512, scene_feat_dim=32,
@@ -59,7 +73,23 @@ FULL_P, FULL_V, FULL_IMG = 20000, 6890, 224
 # 104.6-148.5) on an NVIDIA H100 80GB HBM3 at a 700 W power limit
 TRAIN_BUDGET_IMGS_PER_S = 108.5
 
-RequestHook = Optional[Callable[[str, Callable[[], object]], None]]
+
+
+class Request(NamedTuple):
+    """One untimed request of a program a mode times, as the request hook
+    gets it: `request()` runs it eagerly, each kernel call made in the
+    caller's sight; `request.replay()` runs the same request, on the same
+    inputs and draws, through its captured program (None where the mode
+    runs eagerly)."""
+
+    eager: Callable[[], object]
+    replay: Optional[Callable[[], object]] = None
+
+    def __call__(self):
+        return self.eager()
+
+
+RequestHook = Optional[Callable[[str, Request], None]]
 
 
 class Chain(NamedTuple):
@@ -242,6 +272,15 @@ def _ms(s: Optional[float]) -> Optional[float]:
     return None if s is None else s * 1e3
 
 
+def capture_extra(programs) -> Dict:
+    """The captures behind a mode's programs: their seconds (warm-up runs
+    included) and the bytes their graphs' private pools hold; zeros where
+    nothing was captured (the CPU)."""
+    return {"seconds": sum(p.capture_seconds for p in programs),
+            "pool_bytes": sum(p.pool_bytes for p in programs),
+            "programs": sum(len(p.programs) for p in programs)}
+
+
 # ------------------------------------------------- the two DDIM-5 variants
 @torch.no_grad()
 def fused_pipeline(model, cfg, smpl, stats, schedule, batch, gen, num_samples: int, *,
@@ -275,15 +314,17 @@ def fused_pipeline(model, cfg, smpl, stats, schedule, batch, gen, num_samples: i
 
 
 @torch.no_grad()
-def reference_step(model, cfg, schedule, batch, x: torch.Tensor, t_idx: int) -> torch.Tensor:
-    """One step of the reference's sampling loop: the whole conditioning
-    (ResNet, scene encoder, heads) run again, one denoiser call, the
-    DDIM (eta 0) update."""
+def reference_step(model, cfg, schedule, batch, x: torch.Tensor,
+                   t: torch.Tensor) -> torch.Tensor:
+    """One step of the reference's sampling loop at the respaced step index
+    `t` (int64 [B], one value): the whole conditioning (ResNet, scene
+    encoder, heads) run again, one denoiser call, the DDIM (eta 0) update.
+    The index is a tensor, so that one captured program serves every step,
+    as JAX's `ref_step` takes it traced."""
     from .diffusion.schedule import predict_eps_from_xstart
     from .models import compute_condition, make_denoise_fn
 
     cond = compute_condition(model, cfg, batch)
-    t = torch.full((x.shape[0],), t_idx, dtype=torch.int64, device=x.device)
     x0 = make_denoise_fn(model, cfg, cond)(x, schedule.timestep_map[t])
     eps = predict_eps_from_xstart(schedule, x, t, x0)
     ab_prev = schedule.alphas_cumprod_prev[t][:, None]
@@ -291,22 +332,36 @@ def reference_step(model, cfg, schedule, batch, x: torch.Tensor, t_idx: int) -> 
 
 
 @torch.no_grad()
+def reference_final(model, cfg, smpl, stats, batch, x: torch.Tensor) -> torch.Tensor:
+    """The reference's outputs: the conditioning once more, SMPL and the
+    reprojection; pred_keypoints_3d."""
+    from .models import compute_condition, model_outputs
+
+    cond = compute_condition(model, cfg, batch)
+    return model_outputs(cfg, smpl, cond, x, stats)["pred_keypoints_3d"]
+
+
+@torch.no_grad()
 def reference_pipeline(model, cfg, smpl, stats, schedule, batch, noise: torch.Tensor, *,
-                       fence: Optional[Callable[[], None]] = None) -> torch.Tensor:
+                       fence: Optional[Callable[[], None]] = None,
+                       step: Optional[Callable] = None,
+                       final: Optional[Callable] = None) -> torch.Tensor:
     """The reference architecture: a Python loop over the respaced steps,
     each rerunning the f32 conditioning, then the conditioning once more
     for the outputs. `fence` (a synchronise) runs after every step and at
-    the end, as the reference's per-step module calls wait. Returns
-    pred_keypoints_3d."""
-    from .models import compute_condition, model_outputs
-
+    the end, as the reference's per-step module calls wait. `step(batch,
+    x, t)` and `final(batch, x)` take the place of `reference_step` and
+    `reference_final` on this model (the bench passes their captured
+    programs). Returns pred_keypoints_3d."""
+    step = step or functools.partial(reference_step, model, cfg, schedule)
+    final = final or functools.partial(reference_final, model, cfg, smpl, stats)
     x = noise
     for i in range(schedule.num_timesteps - 1, -1, -1):
-        x = reference_step(model, cfg, schedule, batch, x, i)
+        t = torch.full((x.shape[0],), i, dtype=torch.int64, device=x.device)
+        x = step(batch, x, t)
         if fence is not None:
             fence()
-    cond = compute_condition(model, cfg, batch)
-    out = model_outputs(cfg, smpl, cond, x, stats)["pred_keypoints_3d"]
+    out = final(batch, x)
     if fence is not None:
         fence()
     return out
@@ -331,28 +386,46 @@ def _default_bench(args, dev, hook: RequestHook) -> int:
     S = args.num_samples
     NB = B * S
 
-    def fused(i):
-        return fused_pipeline(nn_model, cfg, smpl, stats, schedule, batch, generator(dev, i),
-                              S, bf16=use_bf16)
+    def fused_program(b, s):
+        return CapturedProgram(functools.partial(
+            fused_pipeline, nn_model, cfg, smpl, stats, schedule, gen=None, num_samples=s,
+            bf16=use_bf16), name=f"fused request ({b} images x {s} samples)")
 
-    def ref_style(i):
+    # the request programs, as the JAX bench's jitted `fused`, `ref_step`
+    # and `ref_final`; the graph's inputs are the batch and x_T (DDIM with
+    # eta 0 draws no step noise)
+    fused_prog = fused_program(B, S)
+    ref_step = CapturedProgram(functools.partial(reference_step, model, cfg, schedule),
+                               name="reference-architecture step")
+    ref_final = CapturedProgram(functools.partial(reference_final, model, cfg, smpl, stats),
+                                name="reference-architecture outputs")
+    programs = [fused_prog, ref_step, ref_final]
+
+    def fused(i, run=fused_prog):
+        x_T = torch.randn((NB, 144), generator=generator(dev, i), device=dev)
+        return run(batch, noise=x_T)
+
+    def ref_style(i, step=ref_step, final=ref_final):
         noise = torch.randn((B, 144), generator=generator(dev, i), device=dev)
-        return reference_pipeline(model, cfg, smpl, stats, schedule, batch, noise)
+        return reference_pipeline(model, cfg, smpl, stats, schedule, batch, noise,
+                                  step=step, final=final)
 
-    def time_fn(fn, tag, n_bodies):
+    def time_fn(fn, tag, n_bodies, eager):
         if hook is not None:
-            hook(tag, lambda: fn(10 ** 6))
+            hook(tag, Request(lambda: eager(10 ** 6), lambda: fn(10 ** 6)))
         ch = _chain_throughput(fn, args.iters, dev, measure_latency=True,
                                min_chain=min_chain(args))
         _log(f"{tag}: first call {ch.first_s:.1f}s, blocking p50 {ch.p50 * 1e3:.1f}ms, "
              f"pipelined {ch.dt * 1e3:.1f}ms/batch -> {n_bodies / ch.dt:.1f} samples/s")
         return n_bodies / ch.dt, ch
 
-    fused_sps, fused_ch = time_fn(fused, "fused", NB)
+    fused_sps, fused_ch = time_fn(fused, "fused", NB,
+                                  lambda i: fused(i, run=fused_prog.eager))
     readings = {"fused": fused_ch.readings}
     ref_sps = disp_sps = disp_local_sps = rt_ms = None
     if not (args.skip_baseline or S > 1):
-        ref_sps, ref_ch = time_fn(ref_style, "reference-architecture", B)
+        ref_sps, ref_ch = time_fn(ref_style, "reference-architecture", B,
+                                  lambda i: ref_style(i, ref_step.eager, ref_final.eager))
         readings["reference_architecture"] = ref_ch.readings
 
         # the reference's execution model: the same per-step work driven
@@ -361,7 +434,8 @@ def _default_bench(args, dev, hook: RequestHook) -> int:
         def dispatch_batch(i):
             noise = torch.randn((B, 144), generator=generator(dev, i), device=dev)
             return reference_pipeline(model, cfg, smpl, stats, schedule, batch, noise,
-                                      fence=lambda: _sync(dev))
+                                      fence=lambda: _sync(dev), step=ref_step,
+                                      final=ref_final)
 
         dispatch_batch(0)  # warm
         reps = max(2, args.iters // 2)
@@ -395,13 +469,16 @@ def _default_bench(args, dev, hook: RequestHook) -> int:
     if not args.quick and S == 1:
         B5, S5 = 32, 5
         batch5 = synthetic_batch(B5, num_scene_points=P, img_size=img, device=dev)
+        paper_prog = fused_program(B5, S5)
+        programs.append(paper_prog)
 
-        def fused_paper(i):
-            return fused_pipeline(nn_model, cfg, smpl, stats, schedule, batch5,
-                                  generator(dev, i), S5, bf16=use_bf16)
+        def fused_paper(i, run=paper_prog):
+            x_T = torch.randn((B5 * S5, 144), generator=generator(dev, i), device=dev)
+            return run(batch5, noise=x_T)
 
         if hook is not None:
-            hook("paper setting", lambda: fused_paper(10 ** 6))
+            hook("paper setting", Request(lambda: fused_paper(10 ** 6, run=paper_prog.eager),
+                                          lambda: fused_paper(10 ** 6)))
         ch5 = _chain_throughput(fused_paper, args.iters, dev, min_chain=min_chain(args))
         paper_sps = B5 * S5 / ch5.dt
         readings["paper_setting"] = ch5.readings
@@ -452,6 +529,7 @@ def _default_bench(args, dev, hook: RequestHook) -> int:
             "round_trip_ms_per_fence": rt_ms,
             "paper_setting_samples_per_sec": paper_sps,
             "launches_per_request": fused_ch.readings["launches_per_call"],
+            "capture": capture_extra(programs),
             "readings": readings,
             "platform": dev.type,
             "device": device_name(dev),
@@ -473,7 +551,7 @@ def _guided_bench(args, dev, hook: RequestHook) -> int:
     DDIM-5 at batch 64 (--guided-ddim); bf16 conditioning and denoiser
     (the model cast once), f32 guidance, sampler and SMPL."""
     from .data import synthetic_batch
-    from .diffusion import GuidanceConfig, make_schedule
+    from .diffusion import GuidanceConfig, draw_step_noise, make_schedule
     from .eval.pipeline import sample_bodies
     from .nn import cast_params_bf16
     from .smpl import make_synthetic_model
@@ -503,15 +581,27 @@ def _guided_bench(args, dev, hook: RequestHook) -> int:
     batch = synthetic_batch(B, num_scene_points=P, img_size=img, device=dev)
     gcfg = GuidanceConfig(cond_grad_weight=2.0)
 
-    def guided(i):
+    def request(b, x_T, step_noise):
         outs, _ = sample_bodies(
-            model, cfg, smpl, stats, schedule, batch, generator(dev, i), 1,
+            model, cfg, smpl, stats, schedule, b, None, 1,
             sampler=sampler, with_guidance=True, guidance=gcfg, bf16=use_bf16,
-            params_precast=use_bf16, guidance_refresh_every=refresh)
+            params_precast=use_bf16, guidance_refresh_every=refresh, noise=x_T,
+            step_noise=step_noise)
         return outs["pred_keypoints_3d"]
 
+    # the request program, as the JAX bench's jitted `guided`: the guided
+    # steps' autograd pass and K2 inside; x_T and the step noise drawn
+    # outside from the request's generator
+    program = CapturedProgram(request, name=f"{tag} request")
+
+    def guided(i, run=program):
+        gen = generator(dev, i)  # x_T, then the steps' noise, as sample_loop draws them
+        x_T = torch.randn((B, 144), generator=gen, device=dev)
+        return run(batch, x_T, draw_step_noise(schedule, gen, (B, 144), sampler=sampler))
+
     if hook is not None:
-        hook(tag, lambda: guided(10 ** 6))
+        hook(tag, Request(lambda: guided(10 ** 6, run=program.eager),
+                          lambda: guided(10 ** 6)))
     ch = _chain_throughput(guided, args.iters, dev, measure_latency=True,
                            min_chain=min_chain(args))
     _log(f"{tag}: first call {ch.first_s:.1f}s, blocking p50 {ch.p50 * 1e3:.1f}ms, "
@@ -534,6 +624,7 @@ def _guided_bench(args, dev, hook: RequestHook) -> int:
             "tf32": tf32_state(),
             "guidance_selection_refresh_every": refresh,
             "launches_per_request": ch.readings["launches_per_call"],
+            "capture": capture_extra([program]),
             "readings": ch.readings,
             "platform": dev.type,
             "device": device_name(dev),
@@ -569,7 +660,8 @@ def _serving_bench(args, dev, hook: RequestHook) -> int:
     pred.warmup(batch)
     first_s = time.perf_counter() - t0
     if hook is not None:
-        hook("serving", lambda: pred(batch, seed=10 ** 6))
+        hook("serving", Request(lambda: pred.eager(batch, seed=10 ** 6),
+                                lambda: pred(batch, seed=10 ** 6)))
     k1_0, k2_0 = _launches()
     requests = 0
 
@@ -612,6 +704,8 @@ def _serving_bench(args, dev, hook: RequestHook) -> int:
                         "numpy outputs: host consumption and the upload included",
             "launches_per_request": {"k1": (k1_1 - k1_0) / requests,
                                      "k2": (k2_1 - k2_0) / requests},
+            "captured": pred.captured,
+            "capture": capture_extra(pred._programs),
             "readings": {"n1": n1, "n2": n2, "host_s_n1": r1, "host_s_n2": r2},
             "platform": dev.type,
             "device": device_name(dev),
@@ -648,7 +742,7 @@ def _train_bench(args, dev, hook: RequestHook) -> int:
         return step(model, batch, generator(dev, i))["loss"]
 
     if hook is not None:
-        hook("train step", lambda: call(10 ** 6))
+        hook("train step", Request(lambda: call(10 ** 6)))
     ch = _chain_throughput(call, args.iters, dev, measure_latency=True,
                            min_chain=min_chain(args))
     loss = float(call(10 ** 6 + 1))
@@ -875,8 +969,10 @@ def main(argv=None, *, request_hook: RequestHook = None) -> int:
     """Run the mode `argv` selects and print its JSON line; returns the
     exit code. `request_hook(name, request)`, when given, is called once
     for every request program a mode times, before it is timed; calling
-    `request()` runs one untimed request (a caller's check of the kernels
-    on the path)."""
+    `request()` runs one untimed request eagerly (a caller's check of the
+    kernels on the path), and `request.replay()`, where the mode captures
+    the program, the same request replayed (a caller's check of replay
+    against eager): a `Request`."""
     ap = parser()
     args = ap.parse_args(argv)
     if args.bf16 and args.f32:

@@ -11,11 +11,15 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import sys
 
 import torch
 
+from ..utils.graphs import count_launch
+
 # K2 launches on the card since the count was last set to 0 (one per
-# `nearest_vertex_idx` call on a CUDA tensor)
+# `nearest_vertex_idx` call on a CUDA tensor, or per replay of a captured
+# program that holds one: `utils/graphs.py:count_launch`)
 launches = 0
 
 _lib = None
@@ -94,7 +98,6 @@ def _sm_count(device: torch.device) -> int:
 
 
 def _launch(points: torch.Tensor, verts: torch.Tensor) -> torch.Tensor:
-    global launches
     lib = _load()
     if points.dtype != torch.float32 or verts.dtype != torch.float32:
         raise ValueError(f"K2 takes float32, got {points.dtype} and {verts.dtype}")
@@ -124,7 +127,7 @@ def _launch(points: torch.Tensor, verts: torch.Tensor) -> torch.Tensor:
     if code != 0:
         msg = lib.k2_error_string(code).decode()
         raise RuntimeError(f"K2 launch failed: CUDA error {code} ({msg})")
-    launches += 1
+    count_launch(sys.modules[__name__])
     return idx
 
 

@@ -1,7 +1,7 @@
 """Diffusion schedule tables and the DDPM / DDIM samplers, with collision
 guidance."""
-from .sampler import GuidanceConfig, StatefulGuidanceFn, sample_loop
+from .sampler import GuidanceConfig, StatefulGuidanceFn, draw_step_noise, sample_loop
 from .schedule import DiffusionSchedule, make_schedule
 
 __all__ = ["DiffusionSchedule", "GuidanceConfig", "StatefulGuidanceFn",
-           "make_schedule", "sample_loop"]
+           "draw_step_noise", "make_schedule", "sample_loop"]

@@ -76,10 +76,38 @@ def _step_noise(x: torch.Tensor, generator: torch.Generator, shard: Shard) -> to
         (n, *x.shape[1:]), generator=generator, device=x.device, dtype=x.dtype))
 
 
+def _noisy_steps(schedule: DiffusionSchedule, sampler: str, eta: float,
+                 skip_timesteps: int = 0) -> int:
+    """How many of the loop's steps add noise: every step but the last for
+    DDPM and for DDIM with eta > 0, none for DDIM with eta = 0."""
+    steps = schedule.num_timesteps - skip_timesteps
+    if sampler == "ddim" and eta == 0:
+        return 0
+    return max(steps - 1, 0)
+
+
+def draw_step_noise(schedule: DiffusionSchedule, generator: torch.Generator,
+                    shape: Tuple[int, ...], *, sampler: str = "ddpm", eta: float = 0.0,
+                    skip_timesteps: int = 0, shard: Shard = None) -> torch.Tensor:
+    """Every noise tensor that `sample_loop` would draw from `generator` for
+    its steps, drawn now, in the loop's order, on the generator's device:
+    [K, *shape] f32 for the K steps that add noise (K = 0 for DDIM with
+    eta = 0). `shape` is the rows of `shard`, whose draws keep
+    `draw_rows`' semantics. Call it after x_T is drawn from the same
+    generator. `sample_loop(step_noise=...)` then takes these in place of
+    drawing, so the loop holds no random state: a captured request gets
+    its seed through its inputs only."""
+    k = _noisy_steps(schedule, sampler, eta, skip_timesteps)
+    template = torch.empty(shape, dtype=torch.float32, device=generator.device)
+    draws = [_step_noise(template, generator, shard) for _ in range(k)]
+    return torch.stack(draws) if draws else template.new_empty((0, *shape))
+
+
 def _ddpm_step(schedule: DiffusionSchedule, denoise_fn: DenoiseFn,
                guidance_fn: Optional[GuidanceFn], gcfg: GuidanceConfig,
                x: torch.Tensor, t_idx: int, gaux,
-               generator: Optional[torch.Generator], shard: Shard = None):
+               generator: Optional[torch.Generator], shard: Shard = None,
+               noise: Optional[torch.Tensor] = None):
     t = torch.full((x.shape[0],), t_idx, dtype=torch.int64, device=x.device)
     pred_xstart = denoise_fn(x, schedule.timestep_map[t])
     mean = q_posterior_mean(schedule, pred_xstart, x, t)
@@ -93,13 +121,16 @@ def _ddpm_step(schedule: DiffusionSchedule, denoise_fn: DenoiseFn,
     if t_idx == 0:  # the last step adds no noise
         return mean, gaux
     sigma = torch.exp(0.5 * schedule.posterior_log_variance_clipped[t])[:, None]
-    return mean + sigma * _step_noise(x, generator, shard), gaux
+    if noise is None:
+        noise = _step_noise(x, generator, shard)
+    return mean + sigma * noise, gaux
 
 
 def _ddim_step(schedule: DiffusionSchedule, denoise_fn: DenoiseFn,
                guidance_fn: Optional[GuidanceFn], gcfg: GuidanceConfig,
                eta: float, x: torch.Tensor, t_idx: int, gaux,
-               generator: Optional[torch.Generator], shard: Shard = None):
+               generator: Optional[torch.Generator], shard: Shard = None,
+               noise: Optional[torch.Tensor] = None):
     t = torch.full((x.shape[0],), t_idx, dtype=torch.int64, device=x.device)
     pred_xstart = denoise_fn(x, schedule.timestep_map[t])
     alpha_bar = schedule.alphas_cumprod[t][:, None]
@@ -119,7 +150,9 @@ def _ddim_step(schedule: DiffusionSchedule, denoise_fn: DenoiseFn,
     # sigma is exactly 0 for eta == 0, and the last step adds no noise
     if eta == 0 or t_idx == 0:
         return mean_pred, gaux
-    return mean_pred + sigma * _step_noise(x, generator, shard), gaux
+    if noise is None:
+        noise = _step_noise(x, generator, shard)
+    return mean_pred + sigma * noise, gaux
 
 
 def sample_loop(
@@ -137,11 +170,15 @@ def sample_loop(
     init_data: Optional[torch.Tensor] = None,
     dump_steps: Optional[Sequence[int]] = None,
     shard: Shard = None,
+    step_noise: Optional[torch.Tensor] = None,
 ):
     """Run the reverse diffusion; returns (final_sample, final_pred_xstart).
 
     x_T is `noise` when given, else drawn from `generator` on the
-    generator's device; the per-step noise always comes from `generator`.
+    generator's device; the per-step noise is `step_noise` when given
+    (`draw_step_noise`'s [K, rows, D], the k-th noisy step taking
+    `step_noise[k]`), else drawn from `generator` step by step, the same
+    numbers in the same order.
     `shard` (a rank's record, or (i, n)): the rows are a block of a larger
     batch (`parallel.Shard`); x_T and each step's noise are drawn for
     the whole batch and the block's rows kept, so that the n blocks
@@ -176,17 +213,24 @@ def sample_loop(
             raise ValueError(
                 f"dump_steps {bad} out of range for a {t_start}-step chain")
 
+    if step_noise is not None:
+        want = _noisy_steps(schedule, sampler, eta, skip_timesteps)
+        if step_noise.shape[0] != want:
+            raise ValueError(f"step_noise holds {step_noise.shape[0]} steps' noise; this "
+                             f"{sampler} chain adds noise on {want} steps")
+
     gaux = ()
     if isinstance(guidance_fn, StatefulGuidanceFn):
         gaux = (guidance_fn.init_state(x), 0)
     traj = []
-    for t_idx in range(t_start - 1, -1, -1):
+    for k, t_idx in enumerate(range(t_start - 1, -1, -1)):
+        noise_k = None if step_noise is None or k >= step_noise.shape[0] else step_noise[k]
         if sampler == "ddpm":
             x, gaux = _ddpm_step(schedule, denoise_fn, guidance_fn, guidance,
-                                 x, t_idx, gaux, generator, shard)
+                                 x, t_idx, gaux, generator, shard, noise_k)
         else:
             x, gaux = _ddim_step(schedule, denoise_fn, guidance_fn, guidance,
-                                 eta, x, t_idx, gaux, generator, shard)
+                                 eta, x, t_idx, gaux, generator, shard, noise_k)
         if dump_steps is not None:
             traj.append(x)
     if dump_steps is not None:

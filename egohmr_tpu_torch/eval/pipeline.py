@@ -82,6 +82,7 @@ def sample_bodies(
     guidance_refresh_every: int = 1,
     guidance_grad_mode: str = "exact",
     noise: Optional[torch.Tensor] = None,
+    step_noise: Optional[torch.Tensor] = None,
     shard: Shard = None,
     tp: Optional[TensorParallel] = None,
 ) -> Tuple[Dict[str, torch.Tensor], Condition]:
@@ -106,7 +107,11 @@ def sample_bodies(
     gradient in a scope of its own.
 
     `batch` holds tensors on the model's device. x_T is `noise` when given,
-    else drawn from `generator`. With `bf16` the conditioning and the
+    else drawn from `generator`; the steps' noise is `step_noise` when
+    given (`diffusion.draw_step_noise`), else drawn from `generator` as the
+    loop goes. With both given the function draws nothing, reads nothing
+    back to the host and allocates by shape alone, so it runs unchanged
+    inside a CUDA graph's capture (`serving.Predictor`). With `bf16` the conditioning and the
     denoiser run in bfloat16 (BatchNorm statistics stay f32 and fold into
     the activation dtype); the sampler, SMPL and the reprojection stay f32.
     `params_precast` means `model` already is the bf16 copy.
@@ -179,7 +184,8 @@ def sample_bodies(
                 grad_mode=guidance_grad_mode)
     _, x0 = sample_loop(schedule, denoise, generator, (B * num_samples, 144),
                         sampler=sampler, guidance_fn=guidance_fn,
-                        guidance=guidance, noise=noise, shard=shard)
+                        guidance=guidance, noise=noise, shard=shard,
+                        step_noise=step_noise)
     out = model_outputs(cfg, smpl, cond_s, x0, stats)
     out = {k: v.reshape(B, num_samples, *v.shape[1:]) for k, v in out.items()}
     return out, cond

@@ -422,6 +422,19 @@ _GUIDE_JOINT_SCALE[[1, 2]] = 1.0
 _GUIDE_JOINT_SCALE[[4, 5, 7, 8, 10, 11]] = 2.0
 
 
+# The guidance's constants, built once per device as `_adjacency` is: a
+# copy from pageable host memory per request would wait for the stream, and
+# inside a CUDA graph's capture it is an error.
+@functools.lru_cache(maxsize=None)
+def _guide_joint_scale(device: torch.device) -> torch.Tensor:
+    return torch.tensor(_GUIDE_JOINT_SCALE, device=device)[None, :, None]
+
+
+@functools.lru_cache(maxsize=None)
+def _scene_permutation(n: int, device: torch.device) -> torch.Tensor:
+    return torch.tensor(np.random.RandomState(0).permutation(n), device=device)
+
+
 def make_guidance_fn(
     model: EgoHMR,
     cfg: EgoHMRConfig,
@@ -488,8 +501,7 @@ def make_guidance_fn(
     if grad_mode not in ("exact", "forward-only"):
         raise ValueError(f"grad_mode must be 'exact' or 'forward-only', got {grad_mode!r}")
     dev = cond.scene_pcd.device
-    # constants go to the device once, here, not inside a guided step
-    scale = torch.tensor(_GUIDE_JOINT_SCALE, device=dev)[None, :, None]  # [1,24,1]
+    scale = _guide_joint_scale(dev)  # [1, 24, 1]
     betas = cond.pred_betas.detach()
     scene = topk_scene_points(cond.scene_pcd.detach(), max_scene_points)
     do_cap = per_step_points is not None and per_step_points < scene.shape[1]
@@ -499,8 +511,7 @@ def make_guidance_fn(
         # crops that evicts with a spatial bias once the bbox holds more
         # than K2 points. A fixed permutation makes the tie-break unbiased
         # and keeps it deterministic across runs.
-        perm = np.random.RandomState(0).permutation(scene.shape[1])
-        scene = scene[:, torch.tensor(perm, device=dev)]
+        scene = scene[:, _scene_permutation(scene.shape[1], dev)]
     K2 = per_step_points if do_cap else scene.shape[1]
 
     def rotmats(x_t: torch.Tensor) -> torch.Tensor:

@@ -11,16 +11,19 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import sys
 import weakref
 from typing import NamedTuple, Tuple
 
 import torch
 
+from ..utils.graphs import count_launch
 from .core import linear
 from .pointnet import ResnetPointnet
 
 # K1 chains launched on the card since the count was last set to 0 (one
-# per `pointnet_fused_feature` call on a CUDA tensor)
+# per `pointnet_fused_feature` call on a CUDA tensor, or per replay of a
+# captured program that holds one: `utils/graphs.py:count_launch`)
 launches = 0
 
 _lib = None
@@ -211,7 +214,6 @@ def _sm_count(device: torch.device) -> int:
 
 
 def _launch(model: ResnetPointnet, points: torch.Tensor) -> torch.Tensor:
-    global launches
     lib = _load()
     if points.ndim != 3 or points.shape[-1] != 3:
         raise ValueError(f"points must be [B, P, 3], got {tuple(points.shape)}")
@@ -254,7 +256,7 @@ def _launch(model: ResnetPointnet, points: torch.Tensor) -> torch.Tensor:
             src, dst = dst, src
         _check(lib.k1_context(enc[3].data_ptr(), None, None, None, pool.data_ptr(),
                               None, None, B, stream))
-    launches += 1
+    count_launch(sys.modules[__name__])
     return pool
 
 

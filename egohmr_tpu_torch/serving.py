@@ -15,11 +15,19 @@ egohmr_tpu/serving.py:Predictor).
     split into equal blocks of rows, one per replica; or a data x model
     grid of devices, the counterpart of its 2-D `mesh=`: one replica per
     row, its scene PointNet and GCN split over the row's devices
-    (`parallel/tp.py`).
+    (`parallel/tp.py`);
+  * on the card the request is ONE captured program per shape, as the JAX
+    package's `jax.jit(_run)` is one compiled program: conditioning, the
+    whole sampling loop (guided steps and their autograd pass included),
+    SMPL, the reprojection and the packing, captured once as a CUDA graph
+    and replayed (`utils/graphs.py`). x_T and the steps' noise are drawn
+    from the request's seeded generator outside the graph and copied in.
 """
 from __future__ import annotations
 
 import copy
+import functools
+import weakref
 from collections import deque
 from dataclasses import replace
 from typing import Dict, Iterable, Iterator, NamedTuple, Optional, Sequence, Union
@@ -28,13 +36,14 @@ import numpy as np
 import torch
 
 from .data import pad_batch, to_torch
-from .diffusion import DiffusionSchedule, GuidanceConfig
+from .diffusion import DiffusionSchedule, GuidanceConfig, draw_step_noise
 from .eval.pipeline import sample_bodies
 from .models import BodyRepStats, EgoHMR, EgoHMRConfig
 from .nn import cast_params_bf16
 from .parallel.mesh import shard_batch
 from .parallel.tp import egohmr_tp_specs, place_params
 from .smpl import SMPLModel
+from .utils.graphs import CapturedProgram
 
 # the compact default output set; pose/betas (+ the input translation)
 # determine the body, the mesh costs ~5 MB per batch of readback
@@ -87,7 +96,17 @@ class Predictor:
     plain one: `pointnet_impl="fused"` becomes "xla" (kernel K1 is one
     device's program, as the JAX package's `pallas_call`, which GSPMD
     cannot partition), which `self.cfg.pointnet_impl` shows. A dp x 1 grid
-    is the flat sequence of its rows' devices."""
+    is the flat sequence of its rows' devices.
+
+    `captured` says which path a request takes. True on CUDA devices
+    without a model split (one device, or a flat sequence): each replica's
+    request (`_sample` + `_pack`, the JAX package's `_run`) is a
+    `CapturedProgram`, captured as a CUDA graph on the first request of a
+    shape (or by `warmup`) and replayed from then on; the outputs equal the
+    eager request's. False on the CPU, where the request runs eagerly, and
+    under tp > 1: a grid's request spans several devices, and a graph is
+    one device's, so the grid stays eager (the JAX package's 2-D mesh is
+    one GSPMD program; the port has no counterpart of that yet)."""
 
     def __init__(
         self,
@@ -158,6 +177,16 @@ class Predictor:
              schedule.to(d), placed)
             for d, (rep, placed) in zip(self.devices, blocks)]
         self._layout = None  # [(key, trailing_shape, offset, size)]
+        self.captured = self.tp == 1 and self.device.type == "cuda"
+        n = len(self.devices)
+        # the programs hold a weak reference: no cycle keeps a dropped
+        # Predictor's graphs and pools for the collector to free later,
+        # perhaps in the middle of another program's capture
+        me = weakref.proxy(self)
+        self._programs = [
+            CapturedProgram(functools.partial(Predictor._request, me, replica, (i, n)),
+                            name=f"Predictor request (replica {i} of {n})")
+            for i, replica in enumerate(self._replicas)]
 
     def _pack(self, outs: Dict) -> torch.Tensor:
         missing = [k for k in self._output_keys if k not in outs]
@@ -186,22 +215,48 @@ class Predictor:
             bf16=self.bf16, params_precast=self.bf16, tp=placed, **kw)
         return outs
 
-    def _run(self, batch: Dict, generator: torch.Generator) -> torch.Tensor:
+    def _request(self, replica, shard, batch: Dict, x_T: torch.Tensor,
+                 step_noise: torch.Tensor) -> torch.Tensor:
+        """One replica's request, the program that is captured: the block
+        `shard` of the batch from x_T and the steps' noise to the packed
+        outputs. It draws nothing."""
+        return self._pack(self._sample(replica, batch, None, noise=x_T,
+                                       step_noise=step_noise, shard=shard))
+
+    def _run(self, batch: Dict, generator: torch.Generator, *,
+             eager: bool = False) -> torch.Tensor:
         n = len(self.devices)
-        x_T = torch.randn((self.batch_size * self.num_samples, 144), generator=generator,
-                          device=self.device)
+        rows = self.batch_size * self.num_samples
+        x_T = torch.randn((rows, 144), generator=generator, device=self.device)
         state = generator.get_state()
         parts = []
-        for i, (d, replica) in enumerate(zip(self.devices, self._replicas)):
+        for i, (d, replica, program) in enumerate(zip(self.devices, self._replicas,
+                                                      self._programs)):
+            # each replica draws the whole batch's step noise from the state
+            # after x_T and keeps its rows, as one device would draw it
             g = torch.Generator(device=d)
             g.set_state(state)
-            parts.append(self._pack(self._sample(
-                replica, to_torch(shard_batch((i, n), batch), d), g,
-                noise=shard_batch((i, n), x_T).to(d), shard=(i, n))))
+            step_noise = draw_step_noise(replica[3], g, (rows // n, 144), sampler=self.sampler,
+                                         shard=(i, n))
+            run = program if self.captured and not eager else program.eager
+            parts.append(run(to_torch(shard_batch((i, n), batch), d),
+                             shard_batch((i, n), x_T).to(d), step_noise))
+        if n == 1:
+            return parts[0]
         return torch.cat([p.to(self.device) for p in parts])
 
     def submit(self, batch: Dict, *, seed: int = 0) -> Pending:
-        """Queue one request (asynchronous on the card)."""
+        """Queue one request (asynchronous on the card). On the card a
+        request of a shape not seen before captures its program first."""
+        return self._submit(batch, seed, eager=False)
+
+    def eager(self, batch: Dict, *, seed: int = 0) -> Dict[str, np.ndarray]:
+        """One blocking request run eagerly, without the captured program:
+        what a replayed request must equal, and the run in which a caller
+        can watch every kernel call. For comparisons, not for serving."""
+        return self.result(self._submit(batch, seed, eager=True))
+
+    def _submit(self, batch: Dict, seed: int, eager: bool) -> Pending:
         n = batch["img"].shape[0]
         if n > self.batch_size:
             raise ValueError(
@@ -211,8 +266,10 @@ class Predictor:
         if n < self.batch_size:
             batch = pad_batch(batch, self.batch_size)
         generator = torch.Generator(device=self.device).manual_seed(seed)
-        packed = self._run(batch, generator)
+        packed = self._run(batch, generator, eager=eager)
         cuda = self.device.type == "cuda"
+        # a fresh host buffer, its copy queued before the next request's
+        # replay overwrites the program's output
         host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=cuda)
         host.copy_(packed, non_blocking=cuda)
         done = None
@@ -239,7 +296,9 @@ class Predictor:
     def warmup(self, batch: Optional[Dict] = None) -> None:
         """Run one request before taking traffic, and wait for it: the
         kernels are built, cuDNN picks its algorithms and the allocator
-        grows to the request's size.
+        grows to the request's size; on the card (`captured`) the request's
+        program is captured for the batch's shapes, as the JAX package's
+        `warmup` compiles.
 
         `batch` must have the shapes real traffic will use (image size,
         scene-point count): what is warmed is warmed per shape."""

@@ -72,7 +72,7 @@ def main(argv=None, *, request_hook: bench.RequestHook = None) -> int:
             return outs["pred_keypoints_3d"]
 
         if request_hook is not None:
-            request_hook(name, lambda: guided(10 ** 6))
+            request_hook(name, bench.Request(lambda: guided(10 ** 6)))
         ch = bench._chain_throughput(guided, args.iters, dev, min_chain=bench.min_chain(args))
         bench._log(f"{name}: {ch.dt * 1e3:.2f} ms/batch -> {B / ch.dt:.1f} bodies/s "
                    f"(first call {ch.first_s:.1f}s)")

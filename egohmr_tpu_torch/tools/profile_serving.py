@@ -19,9 +19,14 @@ breaks one request of the same `Predictor` down:
                    chains of the packed pipeline (the batch already on the
                    card), differenced as `bench` does, beside the host
                    clock's reading of the same chains;
-  * from `torch.profiler` over one blocking request: its kernel launches,
-    the sum of its kernels' device time and the device's busy share of the
-    request's wall time.
+  * from `torch.profiler` over one blocking request (`profile`, on the card
+    a replay of the request's captured program) and over the same request
+    run eagerly (`profile_eager`, `Predictor.eager`): `kernel_launches`,
+    the kernels and copies the device ran (inside a graph too), the sum of
+    their device time, the device's busy share of the request's wall time,
+    and `host_launches`, the host's CUDA API calls that queued them (graph
+    launches, kernel launches, copies): a replayed request is a few graph
+    launches and copies for all its kernels.
 
 Prints one JSON line. On the CPU (--cpu, a smoke test) the device columns
 read null.
@@ -60,24 +65,26 @@ def _p50(xs):
     return sorted(xs)[len(xs) // 2]
 
 
-def profile_request(pred, batch, device: torch.device) -> dict:
-    """Kernel launches, kernel time and the device's busy share of one
-    blocking request, from `torch.profiler`; nulls on the CPU."""
+def profile_request(request, device: torch.device) -> dict:
+    """The device's kernels and copies, their time and busy share, and the
+    host's launch calls of one blocking `request()`, from
+    `torch.profiler`; nulls on the CPU."""
     from torch.profiler import ProfilerActivity, profile
+
+    from ..utils.profiling import device_kernels, host_launches
 
     if device.type != "cuda":
         return {"kernel_launches": None, "kernel_ms": None, "busy_share": None,
-                "wall_ms": None}
+                "wall_ms": None, "host_launches": None}
     torch.cuda.synchronize(device)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pred(batch, seed=7)
+        request()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    kernel_ms = sum(e.self_device_time_total for e in events) / 1e3
-    return {"kernel_launches": sum(e.count for e in events), "kernel_ms": kernel_ms,
-            "busy_share": kernel_ms / wall_ms, "wall_ms": wall_ms}
+    kernels = device_kernels(prof)
+    return {"kernel_launches": kernels["count"], "kernel_ms": kernels["ms"],
+            "busy_share": kernels["ms"] / wall_ms, "wall_ms": wall_ms,
+            "host_launches": host_launches(prof)}
 
 
 def main(argv=None, *, request_hook: bench.RequestHook = None) -> int:
@@ -109,7 +116,8 @@ def main(argv=None, *, request_hook: bench.RequestHook = None) -> int:
     first_s = time.perf_counter() - t0
     bench._log(f"warm-up {first_s:.1f}s")
     if request_hook is not None:
-        request_hook("serving", lambda: pred(batch, seed=10 ** 6))
+        request_hook("serving", bench.Request(lambda: pred.eager(batch, seed=10 ** 6),
+                                              lambda: pred(batch, seed=10 ** 6)))
 
     # --- submit: host time to queue one request
     ts, pending = [], None
@@ -145,7 +153,8 @@ def main(argv=None, *, request_hook: bench.RequestHook = None) -> int:
     ch = bench._chain_throughput(lambda i: pred._run(dev_batch, bench.generator(dev, i)),
                                  args.iters, dev, min_chain=bench.min_chain(args))
     device_ms = ch.readings.get("event_ms_per_call")
-    prof = profile_request(pred, batch, dev)
+    prof = profile_request(lambda: pred(batch, seed=7), dev)
+    prof_eager = profile_request(lambda: pred.eager(batch, seed=7), dev)
 
     # --- steady-state map_batches at each max_inflight: (t(3n) - t(n)) / 2n
     # cancels the stream's fill and drain
@@ -185,6 +194,9 @@ def main(argv=None, *, request_hook: bench.RequestHook = None) -> int:
         "best": {"max_inflight": int(best_infl), "steady_ms": steady_ms,
                  "bodies_per_s": B * S / (steady_ms / 1e3)},
         "profile": prof,
+        "profile_eager": prof_eager,
+        "captured": pred.captured,
+        "capture": bench.capture_extra(pred._programs),
         "launches_per_request": ch.readings["launches_per_call"],
         "readings": {"device": ch.readings, "steady": raw, "n1": n1},
         "platform": dev.type,

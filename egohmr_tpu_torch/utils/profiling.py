@@ -60,3 +60,37 @@ class PhaseTimer:
 
     def summary(self) -> Dict[str, float]:
         return {name: self.totals[name] / max(self.counts[name], 1) for name in self.totals}
+
+
+# the host's CUDA API calls that put work on a stream, by kind, as
+# `torch.profiler` names them
+HOST_LAUNCH_CALLS = {
+    "graph_launches": ("cudaGraphLaunch", "cuGraphLaunch"),
+    "kernel_launches": ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                        "cuLaunchKernelEx", "cudaLaunchCooperativeKernel"),
+    "copies": ("cudaMemcpyAsync", "cudaMemcpy", "cudaMemsetAsync", "cudaMemset",
+               "cudaMemcpy2DAsync", "cuMemcpyAsync", "cuMemsetD32Async"),
+}
+
+
+def host_launches(prof: torch.profiler.profile) -> Dict[str, int]:
+    """How many times the host called each kind of `HOST_LAUNCH_CALLS` in a
+    `torch.profiler` session, and their total. A replayed CUDA graph is one
+    graph launch for all the kernels inside it; the device kernels the
+    profiler records are counted apart, from its device events."""
+    counts = {kind: 0 for kind in HOST_LAUNCH_CALLS}
+    for e in prof.key_averages():
+        for kind, names in HOST_LAUNCH_CALLS.items():
+            if e.key in names:
+                counts[kind] += e.count
+    counts["total"] = sum(counts.values())
+    return counts
+
+
+def device_kernels(prof: torch.profiler.profile) -> Dict[str, float]:
+    """The device's work in a `torch.profiler` session: the number of
+    kernels and copies it ran (`count`), inside graphs too, and their
+    summed time (`ms`)."""
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"count": sum(e.count for e in events),
+            "ms": sum(e.self_device_time_total for e in events) / 1e3}

@@ -1,6 +1,7 @@
 """Kernels K1, K2 and K3 on the card, each held to its plain version (K2
 also at the distillation label shapes), the evaluation CLI, training steps
-and the shipped learned collision nets on the card against the CPU. Needs a
+and the shipped learned collision nets on the card against the CPU, and
+`Predictor`'s captured request programs against their eager runs. Needs a
 CUDA device and `nvcc`; skips without a card. Run on a GPU machine with
 `python -m pytest --noconftest tests/test_torch_gpu.py -q` (the repo's
 conftest imports JAX, which a GPU machine need not have)."""
@@ -726,6 +727,7 @@ def test_predictor_over_two_replicas_on_one_card(cuda):
         for n in (1, 2):
             pred = Predictor(copy.deepcopy(model), cfg, smpl, stats, schedule,
                              device=cuda if n == 1 else [cuda, cuda], batch_size=8, **kw)
+            pred.warmup(batch)  # captures each replica's program; its runs count
             before = k1.launches
             outs[n] = pred(batch, seed=3)
             assert k1.launches - before == (n if kw["bf16"] else 0)
@@ -736,3 +738,62 @@ def test_predictor_over_two_replicas_on_one_card(cuda):
                                        rtol=2e-4, atol=2e-4, msg=k)
         gap = abs(outs[2]["pred_keypoints_3d"] - outs[1]["pred_keypoints_3d"]).mean()
         assert gap < 0.05
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sampler,respacing,guided,bf16", [
+    ("ddim", "ddim5", False, True), ("ddim", "ddim5", False, False),
+    ("ddim", "ddim5", True, True), ("ddpm", "", True, True)],
+    ids=["unguided-ddim5-bf16", "unguided-ddim5-f32", "guided-ddim5-bf16", "guided-ddpm50-bf16"])
+def test_replayed_request_equals_eager(cuda, sampler, respacing, guided, bf16):
+    """Phase 14 (a) and (b) at a tiny width (the scene encoder at K1's
+    H = 256): a `Predictor` request replayed from its captured CUDA graph
+    equals `Predictor.eager` on the same seed bit for bit, on two seeds and
+    after another shape's capture; K1 once and K2 once per guided step
+    (4, 11) per replayed request by the replay accounting and by the
+    device's kernels under the profiler (K1's four stage kernels, K2's
+    search kernel)."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from egohmr_tpu_torch.data import synthetic_batch
+    from egohmr_tpu_torch.diffusion import GuidanceConfig, make_schedule
+    from egohmr_tpu_torch.models import BodyRepStats, EgoHMR
+    from egohmr_tpu_torch.serving import MESH_OUTPUT_KEYS, Predictor
+    from egohmr_tpu_torch.smpl import make_synthetic_model
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, _ = _tiny_stage2(cuda, pointnet_hidden_dim=256)
+    model = init_random_(EgoHMR(cfg), seed=0).eval()
+    schedule = make_schedule(50, "cosine", respacing)
+    pred = Predictor(model, cfg, make_synthetic_model(num_vertices=512),
+                     BodyRepStats(torch.zeros(144), torch.ones(144)), schedule, device=cuda,
+                     batch_size=4, num_samples=2, bf16=bf16, sampler=sampler,
+                     with_guidance=guided, guidance=GuidanceConfig(cond_grad_weight=60.0,
+                                                                   ddim_scale=30.0),
+                     output_keys=MESH_OUTPUT_KEYS)
+    assert pred.captured
+    batch = synthetic_batch(4, num_scene_points=2048, img_size=64, seed=2)
+    pred.warmup(batch)
+    want_k2 = (4 if sampler == "ddim" else 11) if guided else 0
+    for seed in (3, 4):
+        b1, b2 = k1.launches, k2.launches
+        torch.cuda.synchronize(cuda)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            got = pred(batch, seed=seed)
+            torch.cuda.synchronize(cuda)
+        kernels = {name: sum(e.count for e in prof.key_averages()
+                             if e.device_type == torch.autograd.DeviceType.CUDA
+                             and re.search(rf"\b{name}\b", e.key))
+                   for name in ("stage_kernel", "nearest_vertex_kernel")}
+        assert (k1.launches - b1, k2.launches - b2) == (1, want_k2)
+        assert kernels == {"stage_kernel": 4, "nearest_vertex_kernel": want_k2}
+        want = pred.eager(batch, seed=seed)
+        for k in want:
+            assert (got[k] == want[k]).all(), k
+    pred.warmup(synthetic_batch(4, num_scene_points=1024, img_size=64, seed=5))
+    assert len(pred._programs[0].programs) == 2
+    got, want = pred(batch, seed=6), pred.eager(batch, seed=6)
+    for k in want:
+        assert (got[k] == want[k]).all(), k
