@@ -300,7 +300,7 @@ def phase_device() -> str:
 def phase_build() -> None:
     from egohmr_tpu_torch import _build
 
-    names = ["pointnet_fused", "nearest_vertex", "probe_mma"]
+    names = ["pointnet_fused", "nearest_vertex", "probe_mma", "markers"]
     t0 = time.perf_counter()
     _build.build(names)
     log("build", f"{', '.join(n + '.cu' for n in names)} built for sm_90a in "

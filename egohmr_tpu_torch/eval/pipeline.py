@@ -39,6 +39,7 @@ from ..nn import cast_params_bf16
 from ..parallel.mesh import Shard, global_rows
 from ..parallel.tp import TensorParallel
 from ..smpl import SMPLModel, SMPLOutput, lbs, vertex_normals
+from ..utils.profiling import mark
 from .metrics import (
     apd,
     diversity_std,
@@ -150,6 +151,7 @@ def sample_bodies(
         batch["smpl_params"] = dict(batch["smpl_params"])
         batch["smpl_params"]["transl"] = batch["stage1_transl_full"]
     B = batch["img"].shape[0]
+    mark("image", batch["img"])
     if bf16:
         if not params_precast:
             model = cast_params_bf16(model)
@@ -182,10 +184,12 @@ def sample_bodies(
                 model, cfg, smpl, cond_s, stats,
                 selection_refresh_every=guidance_refresh_every, global_rows=rows,
                 grad_mode=guidance_grad_mode)
+    mark("sampler", batch["img"])
     _, x0 = sample_loop(schedule, denoise, generator, (B * num_samples, 144),
                         sampler=sampler, guidance_fn=guidance_fn,
                         guidance=guidance, noise=noise, shard=shard,
                         step_noise=step_noise)
+    mark("smpl", x0)
     out = model_outputs(cfg, smpl, cond_s, x0, stats)
     out = {k: v.reshape(B, num_samples, *v.shape[1:]) for k, v in out.items()}
     return out, cond

@@ -74,6 +74,7 @@ from ..smpl import (
     vertex_normals,
 )
 from ..smpl import constants as C
+from ..utils.profiling import mark
 
 
 @dataclass(frozen=True)
@@ -278,6 +279,7 @@ def compute_condition(model: EgoHMR, cfg: EgoHMRConfig,
                          f"got train={train}, pointnet_impl={cfg.pointnet_impl!r}")
     B = batch["img"].shape[0]
     img_feats = resnet_forward(model.backbone, batch["img"], train=train, dp=dp)
+    mark("scene", img_feats)
 
     vis_openpose = batch["orig_keypoints_2d"][:, :, -1] > 0
     vis_openpose[:, 8] = True  # pelvis always visible

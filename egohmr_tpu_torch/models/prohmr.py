@@ -51,6 +51,7 @@ from ..nn import (
 from ..parallel.mesh import DataParallel
 from ..smpl import SMPLModel, lbs
 from ..smpl import constants as C
+from ..utils.profiling import span
 from .egohmr import init_random_ as _init_random_parts
 
 
@@ -223,13 +224,25 @@ def forward(model: ProHMR, cfg: ProHMRConfig, smpl: SMPLModel, batch: Dict,
     data-parallel record of `conditioning_feats`."""
     B = batch["img"].shape[0]
     S = num_samples
-    ctx = conditioning_feats(model, cfg, batch, train=train, scene_cano=scene_cano, dp=dp)
-    if z is None:
-        z = ctx.new_zeros((B, S, cfg.flow_dim))
-        if S > 1:
-            z[:, 1:] = torch.randn((B, S - 1, cfg.flow_dim), generator=generator,
-                                   device=ctx.device)
-    pose_6d, log_prob = glow_sample_and_log_prob(model.flow.flow, ctx, z)
+    with span("prohmr.condition"):
+        ctx = conditioning_feats(model, cfg, batch, train=train, scene_cano=scene_cano, dp=dp)
+    with span("prohmr.glow"):
+        if z is None:
+            z = ctx.new_zeros((B, S, cfg.flow_dim))
+            if S > 1:
+                z[:, 1:] = torch.randn((B, S - 1, cfg.flow_dim), generator=generator,
+                                       device=ctx.device)
+        pose_6d, log_prob = glow_sample_and_log_prob(model.flow.flow, ctx, z)
+    with span("prohmr.bodies"):
+        return _bodies(model, cfg, smpl, batch, ctx, pose_6d, log_prob)
+
+
+def _bodies(model: ProHMR, cfg: ProHMRConfig, smpl: SMPLModel, batch: Dict,
+            ctx: torch.Tensor, pose_6d: torch.Tensor, log_prob: torch.Tensor) -> ProHMROutput:
+    """`forward`'s bodies from the flow's poses [B, S, 144]: the fc head's
+    betas and crop camera, SMPL, and the camera into the crop and the full
+    image."""
+    B, S = pose_6d.shape[:2]
     rotmat = rot6d_to_rotmat(pose_6d.reshape(B * S, -1), "prohmr").reshape(B, S, 24, 3, 3)
 
     betas, cam = fc_head(model.flow.fc_head, ctx)

@@ -21,12 +21,19 @@ egohmr_tpu/serving.py:Predictor).
     whole sampling loop (guided steps and their autograd pass included),
     SMPL, the reprojection and the packing, captured once as a CUDA graph
     and replayed (`utils/graphs.py`). x_T and the steps' noise are drawn
-    from the request's seeded generator outside the graph and copied in.
+    from the request's seeded generator outside the graph and copied in;
+  * under a `torch.profiler` session a request's host steps are spans
+    (`utils/profiling.py:span`, all with the request's number):
+    `serve.submit` over `serve.upload`, `serve.launch` and `serve.readback`,
+    and `serve.result` over `serve.wait` and `serve.unpack`. On the card
+    its phases are marked (`utils/profiling.py:mark`), the last, `end`,
+    after the packing.
 """
 from __future__ import annotations
 
 import copy
 import functools
+import itertools
 import weakref
 from collections import deque
 from dataclasses import replace
@@ -44,6 +51,7 @@ from .parallel.mesh import shard_batch
 from .parallel.tp import egohmr_tp_specs, place_params
 from .smpl import SMPLModel
 from .utils.graphs import CapturedProgram
+from .utils.profiling import mark, span
 
 # the compact default output set; pose/betas (+ the input translation)
 # determine the body, the mesh costs ~5 MB per batch of readback
@@ -56,11 +64,13 @@ MESH_OUTPUT_KEYS = _OUTPUT_KEYS + ("pred_vertices",)
 
 class Pending(NamedTuple):
     """A submitted request: its host buffer, the event that marks the
-    readback done (None on the CPU), and its number of valid rows."""
+    readback done (None on the CPU), its number of valid rows, and its
+    number among the Predictor's requests (its spans' `request`)."""
 
     host: torch.Tensor
     done: Optional[torch.cuda.Event]
     n: int
+    request: Optional[int] = None
 
 
 class Predictor:
@@ -177,6 +187,7 @@ class Predictor:
              schedule.to(d), placed)
             for d, (rep, placed) in zip(self.devices, blocks)]
         self._layout = None  # [(key, trailing_shape, offset, size)]
+        self._requests = itertools.count()  # each request's number, for its spans
         self.captured = self.tp == 1 and self.device.type == "cuda"
         n = len(self.devices)
         # the programs hold a weak reference: no cycle keeps a dropped
@@ -220,8 +231,10 @@ class Predictor:
         """One replica's request, the program that is captured: the block
         `shard` of the batch from x_T and the steps' noise to the packed
         outputs. It draws nothing."""
-        return self._pack(self._sample(replica, batch, None, noise=x_T,
-                                       step_noise=step_noise, shard=shard))
+        packed = self._pack(self._sample(replica, batch, None, noise=x_T,
+                                         step_noise=step_noise, shard=shard))
+        mark("end", packed)
+        return packed
 
     def _run(self, batch: Dict, generator: torch.Generator, *,
              eager: bool = False) -> torch.Tensor:
@@ -262,31 +275,39 @@ class Predictor:
             raise ValueError(
                 f"request batch {n} > compiled batch {self.batch_size}; "
                 "split upstream or build a bigger Predictor")
-        batch = to_torch(batch, self.device)
-        if n < self.batch_size:
-            batch = pad_batch(batch, self.batch_size)
-        generator = torch.Generator(device=self.device).manual_seed(seed)
-        packed = self._run(batch, generator, eager=eager)
-        cuda = self.device.type == "cuda"
-        # a fresh host buffer, its copy queued before the next request's
-        # replay overwrites the program's output
-        host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=cuda)
-        host.copy_(packed, non_blocking=cuda)
-        done = None
-        if cuda:
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(self.device))
-        return Pending(host, done, n)
+        request = next(self._requests)
+        with span("serve.submit", request):
+            with span("serve.upload"):
+                batch = to_torch(batch, self.device)
+                if n < self.batch_size:
+                    batch = pad_batch(batch, self.batch_size)
+            with span("serve.launch"):
+                generator = torch.Generator(device=self.device).manual_seed(seed)
+                packed = self._run(batch, generator, eager=eager)
+            with span("serve.readback"):
+                cuda = self.device.type == "cuda"
+                # a fresh host buffer, its copy queued before the next
+                # request's replay overwrites the program's output
+                host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=cuda)
+                host.copy_(packed, non_blocking=cuda)
+                done = None
+                if cuda:
+                    done = torch.cuda.Event()
+                    done.record(torch.cuda.current_stream(self.device))
+        return Pending(host, done, n, request)
 
     def result(self, pending: Pending) -> Dict[str, np.ndarray]:
         """Wait for a submitted request; numpy outputs [n, S, ...] f32."""
-        if pending.done is not None:
-            pending.done.synchronize()
-        host = pending.host.float().numpy()
-        out = {}
-        for k, trail, off, size in self._layout:
-            v = host[:pending.n, :, off:off + size]
-            out[k] = np.array(v.reshape((pending.n, self.num_samples) + trail))
+        with span("serve.result", pending.request):
+            with span("serve.wait"):
+                if pending.done is not None:
+                    pending.done.synchronize()
+            with span("serve.unpack"):
+                host = pending.host.float().numpy()
+                out = {}
+                for k, trail, off, size in self._layout:
+                    v = host[:pending.n, :, off:off + size]
+                    out[k] = np.array(v.reshape((pending.n, self.num_samples) + trail))
         return out
 
     def __call__(self, batch: Dict, *, seed: int = 0) -> Dict[str, np.ndarray]:

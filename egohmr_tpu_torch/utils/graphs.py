@@ -38,6 +38,8 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from .profiling import marking
+
 WARMUP_RUNS = 2  # eager runs before the capture; the last one checks for syncs
 # only the capturing thread is held to the capture's rules. The work that
 # other threads queue on the capturing stream is captured all the same (the
@@ -177,7 +179,9 @@ class CapturedProgram:
             side = torch.cuda.Stream(device) if cuda else None
             if cuda:
                 side.wait_stream(torch.cuda.current_stream(device))
-            with (torch.cuda.stream(side) if cuda else contextlib.nullcontext()):
+            # the phase markers launch in the warm-up runs too, so their
+            # library is loaded before the capture (utils/profiling.py:mark)
+            with (torch.cuda.stream(side) if cuda else contextlib.nullcontext()), marking():
                 for i in range(WARMUP_RUNS):
                     last = i == WARMUP_RUNS - 1
                     with _sync_debug_error() if cuda and last else contextlib.nullcontext():

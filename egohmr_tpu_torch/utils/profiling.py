@@ -1,13 +1,28 @@
-"""Profiling (port of egohmr_tpu/utils/profiling.py): `trace()` records a
-`torch.profiler` trace of the CPU and, when there is one, the CUDA device,
-and `PhaseTimer` sums host time per phase, waiting for the device where a
-phase ends."""
+"""Profiling (port of egohmr_tpu/utils/profiling.py) and the program's own
+spans and device phase markers.
+
+  * `trace()` records a `torch.profiler` trace of the CPU and, when there
+    is one, the CUDA device;
+  * `span(name)` is a host span of the program, live only while a
+    `torch.profiler` session records: a range on the trace's timeline and
+    a record in a bounded store in memory (`recorded()`, `clear()`);
+  * `mark(phase, like)` queues an empty kernel named for a request's phase
+    (`csrc/markers.cu`), so the device's timeline shows where each phase
+    begins, inside a replayed CUDA graph too;
+  * `host_launches` and `device_kernels` sum a session's host launch calls
+    and device kernels.
+"""
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import itertools
 import os
+import threading
 import time
-from typing import Dict, Iterator, Optional, Union
+from collections import deque
+from dataclasses import dataclass
+from typing import Deque, Dict, Iterator, List, Optional
 
 import torch
 
@@ -28,38 +43,140 @@ def trace(logdir: Optional[str]) -> Iterator[Optional[torch.profiler.profile]]:
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
-Syncable = Union[torch.Tensor, torch.device, str, None]
+SPAN_PREFIX = "egohmr."
+STORE_SPANS = 65536  # the store keeps the newest spans, this many at most
 
 
-def synchronize(sync: Syncable) -> None:
-    """Wait for the work queued on the device of `sync` (a tensor or a
-    device); nothing to wait for on the CPU."""
-    if sync is None:
-        return
-    device = sync.device if isinstance(sync, torch.Tensor) else torch.device(sync)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+@dataclass
+class Span:
+    """One span entered while a profiler recorded: its place in the order
+    spans were entered (`index`), its name, the `index` of the span it was
+    entered in (None at the top), its request (its own, else its
+    parent's; None outside a request), and its start and end on
+    `time.perf_counter_ns` (`end_ns` None while it is open)."""
+
+    index: int
+    name: str
+    parent: Optional[int]
+    request: Optional[int]
+    start_ns: int
+    end_ns: Optional[int] = None
 
 
-class PhaseTimer:
-    """Mean host time per named phase. With `sync`, a phase ends only when
-    the work it queued on that tensor's or device's stream has run."""
+_store: Deque[Span] = deque(maxlen=STORE_SPANS)
+_indices = itertools.count()
+_open = threading.local()  # each thread's stack of open spans
+_profiling = torch._C._autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
 
-    def __init__(self):
-        self.totals: Dict[str, float] = {}
-        self.counts: Dict[str, int] = {}
 
-    @contextlib.contextmanager
-    def phase(self, name: str, sync: Syncable = None) -> Iterator[None]:
-        t0 = time.perf_counter()
+class _Recording:
+    __slots__ = ("name", "request", "span", "range")
+
+    def __init__(self, name: str, request: Optional[int]):
+        self.name, self.request = name, request
+
+    def __enter__(self) -> Span:
+        stack = getattr(_open, "stack", None)
+        if stack is None:
+            stack = _open.stack = []
+        parent = stack[-1] if stack else None
+        request = self.request
+        if request is None and parent is not None:
+            request = parent.request
+        self.range = torch.profiler.record_function(SPAN_PREFIX + self.name)
+        self.range.__enter__()
+        self.span = Span(next(_indices), self.name, parent.index if parent else None, request,
+                         time.perf_counter_ns())
+        _store.append(self.span)
+        stack.append(self.span)
+        return self.span
+
+    def __exit__(self, *exc) -> None:
+        self.span.end_ns = time.perf_counter_ns()
+        _open.stack.pop()
+        self.range.__exit__(*exc)
+
+
+def span(name: str, request: Optional[int] = None):
+    """A host span of the program, entered with `with`. While a
+    `torch.profiler` session records it is a `record_function` range named
+    `egohmr.<name>` on the trace's timeline, beside the device's kernels,
+    and a `Span` in the store (`recorded()`), with `request` (or its
+    parent's); otherwise it returns after that one check and records
+    nothing."""
+    if not _profiling():
+        return _OFF
+    return _Recording(name, request)
+
+
+def recorded() -> List[Span]:
+    """The spans in the store, in the order they were entered."""
+    return list(_store)
+
+
+def clear() -> None:
+    """Empty the store."""
+    _store.clear()
+
+
+# The phases of a stage-2 request on the device, in order; `mark(phase)`
+# queues the empty kernel `MARKER_PREFIX + phase` (csrc/markers.cu), so a
+# phase runs from its marker to the next one
+PHASES = ("image", "scene", "sampler", "smpl", "end")
+MARKER_PREFIX = "egohmr_phase_"
+_phase_index = {p: i for i, p in enumerate(PHASES)}
+_markers = None
+_marking = 0
+
+
+def _load_markers():
+    global _markers
+    if _markers is None:
+        from .. import _build
+
+        lib = _build.load("markers")
+        lib.egohmr_mark.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        lib.egohmr_mark.restype = ctypes.c_int
+        lib.egohmr_mark_error_string.argtypes = [ctypes.c_int]
+        lib.egohmr_mark_error_string.restype = ctypes.c_char_p
+        _markers = lib
+    return _markers
+
+
+@contextlib.contextmanager
+def marking() -> Iterator[None]:
+    """`mark` launches inside this block, profiler or not: the warm-up runs
+    of `utils/graphs.py:CapturedProgram`, so that the markers' library is
+    built and its kernels loaded before a capture."""
+    global _marking
+    _marking += 1
+    try:
         yield
-        synchronize(sync)
-        dt = time.perf_counter() - t0
-        self.totals[name] = self.totals.get(name, 0.0) + dt
-        self.counts[name] = self.counts.get(name, 0) + 1
+    finally:
+        _marking -= 1
 
-    def summary(self) -> Dict[str, float]:
-        return {name: self.totals[name] / max(self.counts[name], 1) for name in self.totals}
+
+def mark(phase: str, like: torch.Tensor) -> None:
+    """Queue the empty kernel `egohmr_phase_<phase>` on the current stream
+    of `like`'s device: the device's timeline then shows where `phase`
+    begins. It launches while that stream captures a CUDA graph (every
+    replay then carries it), inside `marking()`, and while a profiler
+    records; otherwise, and on the CPU, it does nothing."""
+    index = _phase_index.get(phase)
+    if index is None:
+        raise ValueError(f"unknown phase {phase!r}; the phases are {PHASES}")
+    dev = like.device
+    if dev.type != "cuda":
+        return
+    if not (_marking or _profiling() or torch.cuda.is_current_stream_capturing()):
+        return
+    lib = _load_markers()
+    with torch.cuda.device(dev):
+        code = lib.egohmr_mark(index, torch.cuda.current_stream(dev).cuda_stream)
+    if code != 0:
+        raise RuntimeError(f"marker {phase!r}: CUDA error {code} "
+                           f"({lib.egohmr_mark_error_string(code).decode()})")
 
 
 # the host's CUDA API calls that put work on a stream, by kind, as

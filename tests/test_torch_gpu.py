@@ -797,3 +797,68 @@ def test_replayed_request_equals_eager(cuda, sampler, respacing, guided, bf16):
     got, want = pred(batch, seed=6), pred.eager(batch, seed=6)
     for k in want:
         assert (got[k] == want[k]).all(), k
+
+
+@pytest.mark.gpu
+def test_request_phases_on_the_card(cuda, tmp_path):
+    """The phase markers at a tiny width (the scene encoder at K1's H = 256):
+    under the profiler, three replayed `Predictor` requests show the five
+    marker kernels in order, once a request, each after its request's host
+    `serve.launch` span began (the host's spans and the device's kernels
+    share the trace's clock), and the four phases tile the device's time
+    from `image` to `end`; the replay, markers captured, equals the eager
+    request bit for bit; an eager request under the profiler marks its
+    phases too."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from egohmr_tpu_torch.data import synthetic_batch
+    from egohmr_tpu_torch.diffusion import make_schedule
+    from egohmr_tpu_torch.models import BodyRepStats, EgoHMR
+    from egohmr_tpu_torch.serving import Predictor
+    from egohmr_tpu_torch.smpl import make_synthetic_model
+    from egohmr_tpu_torch.utils.profiling import MARKER_PREFIX, PHASES, clear, recorded
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, _ = _tiny_stage2(cuda, pointnet_hidden_dim=256)
+    model = init_random_(EgoHMR(cfg), seed=0).eval()
+    pred = Predictor(model, cfg, make_synthetic_model(num_vertices=512),
+                     BodyRepStats(torch.zeros(144), torch.ones(144)),
+                     make_schedule(50, "cosine", "ddim5"), device=cuda, batch_size=4,
+                     num_samples=2, bf16=True, max_inflight=2)
+    batch = synthetic_batch(4, num_scene_points=2048, img_size=64, seed=2)
+    pred.warmup(batch)
+
+    def traced(run):
+        clear()
+        torch.cuda.synchronize(cuda)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = run()
+            torch.cuda.synchronize(cuda)
+        path = tmp_path / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
+        marks = sorted((float(e["ts"]), e["name"][len(MARKER_PREFIX):]) for e in events
+                       if e.get("cat") == "kernel" and e["name"].startswith(MARKER_PREFIX))
+        launches = sorted(float(e["ts"]) for e in events if e.get("cat") == "user_annotation"
+                          and e["name"] == "egohmr.serve.launch")
+        return out, marks, launches
+
+    outs, marks, launches = traced(lambda: list(pred.map_batches(iter([batch] * 3), seed=3)))
+    assert [p for _, p in marks] == list(PHASES) * 3
+    assert len(launches) == 3
+    assert sorted({s.request for s in recorded() if s.name == "serve.launch"}) \
+        == sorted({s.request for s in recorded()})
+    for i in range(3):
+        starts = [t for t, _ in marks[5 * i:5 * i + 5]]
+        assert all(t > launches[i] for t in starts)
+        phases = [b - a for a, b in zip(starts, starts[1:])]
+        assert all(p > 0 for p in phases)
+        assert sum(phases) == pytest.approx(starts[-1] - starts[0], rel=1e-9)
+    for i, got in enumerate(outs):
+        want = pred.eager(batch, seed=3 + i)
+        for k in want:
+            assert (got[k] == want[k]).all(), k
+    _, marks, _ = traced(lambda: pred.eager(batch, seed=3))
+    assert [p for _, p in marks] == list(PHASES)

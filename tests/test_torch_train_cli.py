@@ -211,24 +211,29 @@ def test_prefetch_thread_ends_when_the_consumer_stops():
 
 
 def test_phase_timer_and_trace(tmp_path):
-    """`PhaseTimer` averages each phase's host time; `trace` writes a
-    Chrome-format trace of the block, and does nothing without a directory."""
-    from egohmr_tpu_torch.utils.profiling import PhaseTimer, trace
+    """The program's phase timer is `span`: inside `trace` it records each
+    phase's host interval and an `egohmr.<phase>` range in the trace it
+    writes; `trace` does nothing without a directory, and a span there
+    records nothing."""
+    from egohmr_tpu_torch.utils.profiling import clear, recorded, span, trace
 
-    timer = PhaseTimer()
-    x = torch.ones(64, 64)
-    for _ in range(3):
-        with timer.phase("matmul", sync=x):
-            x = x @ x / 64
-        with timer.phase("idle"):
-            pass
-    means = timer.summary()
-    assert set(means) == {"matmul", "idle"} and timer.counts == {"matmul": 3, "idle": 3}
-    assert all(v >= 0 for v in means.values())
+    clear()
     with trace(str(tmp_path / "tr")) as prof:
-        torch.ones(8) @ torch.ones(8)
+        for _ in range(3):
+            with span("matmul"):
+                torch.ones(8) @ torch.ones(8)
     assert prof is not None
+    spans = recorded()
+    assert [s.name for s in spans] == ["matmul"] * 3
+    assert all(s.end_ns >= s.start_ns for s in spans)
     events = json.load(open(tmp_path / "tr" / "trace.json"))["traceEvents"]
-    assert any("matmul" in e.get("name", "") or "dot" in e.get("name", "") for e in events)
+    assert sum(e.get("name") == "egohmr.matmul" and e.get("cat") == "user_annotation"
+               for e in events) == 3
+    assert any("matmul" in e.get("name", "") or "dot" in e.get("name", "") for e in events
+               if e.get("cat") != "user_annotation")
+    clear()
     with trace("") as prof:
         assert prof is None
+        with span("idle"):
+            pass
+    assert recorded() == []
