@@ -4,6 +4,13 @@ egohmr_tpu/serving.py:Predictor).
   * one fixed (batch_size, num_samples) shape: short requests are padded
     and the results trimmed;
   * bf16 parameters are cast once, at startup;
+  * on the card (`captured`) a NumPy request is uploaded through a
+    resident staging ring per replica (`data/staging.py`): one copy of each
+    leaf into a pinned host slot, the transfer on a copy stream into one of
+    two device slots, which request i+1's transfer fills while request i
+    replays; the request's stream waits for its transfer. `staged`,
+    `unstaged` (the requests that took `to_torch`: on the CPU, under tp >
+    1, with tensor leaves, `eager`) and `slot_waits` count them;
   * all selected outputs are packed into ONE [B, S, sum(D)] tensor in
     sorted key order and copied to the host once, into pinned memory;
   * `map_batches` keeps a bounded window of requests in flight: PyTorch
@@ -24,7 +31,8 @@ egohmr_tpu/serving.py:Predictor).
     from the request's seeded generator outside the graph and copied in;
   * under a `torch.profiler` session a request's host steps are spans
     (`utils/profiling.py:span`, all with the request's number):
-    `serve.submit` over `serve.upload`, `serve.launch` and `serve.readback`,
+    `serve.submit` over `serve.upload` (over `serve.stage_wait` where the
+    host waits for a staging slot), `serve.launch` and `serve.readback`,
     and `serve.result` over `serve.wait` and `serve.unpack`. On the card
     its phases are marked (`utils/profiling.py:mark`), the last, `end`,
     after the packing.
@@ -37,12 +45,13 @@ import itertools
 import weakref
 from collections import deque
 from dataclasses import replace
-from typing import Dict, Iterable, Iterator, NamedTuple, Optional, Sequence, Union
+from typing import Dict, Iterable, Iterator, List, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from .data import pad_batch, to_torch
+from .data.staging import Staged, Staging, numpy_leaves
 from .diffusion import DiffusionSchedule, GuidanceConfig, draw_step_noise
 from .eval.pipeline import sample_bodies
 from .models import BodyRepStats, EgoHMR, EgoHMRConfig
@@ -113,7 +122,11 @@ class Predictor:
     request (`_sample` + `_pack`, the JAX package's `_run`) is a
     `CapturedProgram`, captured as a CUDA graph on the first request of a
     shape (or by `warmup`) and replayed from then on; the outputs equal the
-    eager request's. False on the CPU, where the request runs eagerly, and
+    eager request's. A request whose leaves are all NumPy arrays is then
+    uploaded through each replica's staging ring (`data/staging.py`),
+    built for the batch's signature when it is first seen, and counted in
+    `staged`; any other request takes `to_torch` and counts in
+    `unstaged`. False on the CPU, where the request runs eagerly, and
     under tp > 1: a grid's request spans several devices, and a graph is
     one device's, so the grid stays eager (the JAX package's 2-D mesh is
     one GSPMD program; the port has no counterpart of that yet)."""
@@ -190,6 +203,19 @@ class Predictor:
         self._requests = itertools.count()  # each request's number, for its spans
         self.captured = self.tp == 1 and self.device.type == "cuda"
         n = len(self.devices)
+        self.staged = 0  # requests uploaded through the staging rings
+        self.unstaged = 0  # requests that took `to_torch`
+        # each replica's block of a request, staged on its device. Request j
+        # writes the host slot of request j - depth once that slot's
+        # transfer is done. The transfer starts when request j - depth - 2
+        # has read its device slot and runs beside the replay of request
+        # j - depth - 1; `map_batches` submits j once request
+        # j - max_inflight is done. So depth max_inflight - 1 finds the
+        # transfer done; two keep a slot for the host to write while the
+        # other's transfer runs
+        depth = max(2, self.max_inflight - 1)
+        self._staging = [Staging(d, self.batch_size // n, depth)
+                         for d in self.devices] if self.captured else []
         # the programs hold a weak reference: no cycle keeps a dropped
         # Predictor's graphs and pools for the collector to free later,
         # perhaps in the middle of another program's capture
@@ -236,8 +262,22 @@ class Predictor:
         mark("end", packed)
         return packed
 
+    @property
+    def slot_waits(self) -> int:
+        """Uploads that waited for a staging slot's transfer to finish."""
+        return sum(s.waits for s in self._staging)
+
+    def _stage(self, batch: Dict, n: int) -> Optional[List[Staged]]:
+        """Each replica's block of a NumPy batch of `n` rows, padded to
+        `batch_size`, staged on its device; None where the batch is not all
+        NumPy (`numpy_leaves`)."""
+        leaves = numpy_leaves(batch, n)
+        if leaves is None:
+            return None
+        return [s.upload(leaves, i * s.rows, n) for i, s in enumerate(self._staging)]
+
     def _run(self, batch: Dict, generator: torch.Generator, *,
-             eager: bool = False) -> torch.Tensor:
+             eager: bool = False, staged: Optional[List[Staged]] = None) -> torch.Tensor:
         n = len(self.devices)
         rows = self.batch_size * self.num_samples
         x_T = torch.randn((rows, 144), generator=generator, device=self.device)
@@ -252,8 +292,14 @@ class Predictor:
             step_noise = draw_step_noise(replica[3], g, (rows // n, 144), sampler=self.sampler,
                                          shard=(i, n))
             run = program if self.captured and not eager else program.eager
-            parts.append(run(to_torch(shard_batch((i, n), batch), d),
-                             shard_batch((i, n), x_T).to(d), step_noise))
+            x_block = shard_batch((i, n), x_T).to(d)
+            if staged is None:
+                parts.append(run(to_torch(shard_batch((i, n), batch), d), x_block, step_noise))
+            else:
+                stream = torch.cuda.current_stream(d)
+                stream.wait_event(staged[i].ready)
+                parts.append(run(staged[i].batch, x_block, step_noise))
+                staged[i].consumed.record(stream)  # the program has copied the slot in
         if n == 1:
             return parts[0]
         return torch.cat([p.to(self.device) for p in parts])
@@ -278,12 +324,17 @@ class Predictor:
         request = next(self._requests)
         with span("serve.submit", request):
             with span("serve.upload"):
-                batch = to_torch(batch, self.device)
-                if n < self.batch_size:
-                    batch = pad_batch(batch, self.batch_size)
+                staged = self._stage(batch, n) if self.captured and not eager else None
+                if staged is None:
+                    self.unstaged += 1
+                    batch = to_torch(batch, self.device)
+                    if n < self.batch_size:
+                        batch = pad_batch(batch, self.batch_size)
+                else:
+                    self.staged += 1
             with span("serve.launch"):
                 generator = torch.Generator(device=self.device).manual_seed(seed)
-                packed = self._run(batch, generator, eager=eager)
+                packed = self._run(batch, generator, eager=eager, staged=staged)
             with span("serve.readback"):
                 cuda = self.device.type == "cuda"
                 # a fresh host buffer, its copy queued before the next

@@ -1,7 +1,8 @@
 """Kernels K1, K2 and K3 on the card, each held to its plain version (K2
 also at the distillation label shapes), the evaluation CLI, training steps
 and the shipped learned collision nets on the card against the CPU, and
-`Predictor`'s captured request programs against their eager runs. Needs a
+`Predictor`'s captured request programs and staged uploads against their
+eager runs. Needs a
 CUDA device and `nvcc`; skips without a card. Run on a GPU machine with
 `python -m pytest --noconftest tests/test_torch_gpu.py -q` (the repo's
 conftest imports JAX, which a GPU machine need not have)."""
@@ -797,6 +798,95 @@ def test_replayed_request_equals_eager(cuda, sampler, respacing, guided, bf16):
     got, want = pred(batch, seed=6), pred.eager(batch, seed=6)
     for k in want:
         assert (got[k] == want[k]).all(), k
+
+
+def _staging_predictor(cuda, batch_size):
+    from egohmr_tpu_torch.diffusion import make_schedule
+    from egohmr_tpu_torch.models import BodyRepStats, EgoHMR
+    from egohmr_tpu_torch.serving import Predictor
+    from egohmr_tpu_torch.smpl import make_synthetic_model
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, _ = _tiny_stage2(cuda, pointnet_hidden_dim=256)
+    model = init_random_(EgoHMR(cfg), seed=0).eval()
+    pred = Predictor(model, cfg, make_synthetic_model(num_vertices=512),
+                     BodyRepStats(torch.zeros(144), torch.ones(144)),
+                     make_schedule(50, "cosine", "ddim5"), device=cuda,
+                     batch_size=batch_size, bf16=True, max_inflight=4)
+    assert pred.captured
+    return pred
+
+
+def _map_leaves(fn, tree):
+    return {k: _map_leaves(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+@pytest.mark.gpu
+def test_staged_stream_equals_eager_at_the_bulk_shape(cuda):
+    """The bulk request's shape (64 images of 224 x 224, 20,000 scene
+    points) at a tiny width: a `map_batches` stream of six distinct NumPy
+    batches, 4 in flight, through a staging ring of fewer slots, equals
+    `Predictor.eager` (`to_torch`) on each request bit for bit; `staged`
+    counts every request of the stream and `unstaged` none."""
+    from egohmr_tpu_torch.data import synthetic_batch
+
+    pred = _staging_predictor(cuda, 64)
+    batches = [synthetic_batch(64, num_scene_points=20000, img_size=224, seed=10 + i)
+               for i in range(6)]
+    pred.warmup(batches[0])
+    staged, unstaged = pred.staged, pred.unstaged
+    outs = list(pred.map_batches(iter(batches), seed=7))
+    assert (pred.staged - staged, pred.unstaged - unstaged) == (6, 0)
+    (staging,) = pred._staging
+    (ring,) = staging.rings.values()
+    assert len(ring.host) < len(batches) and len(ring.dev) == 2
+    for i, (b, got) in enumerate(zip(batches, outs)):
+        want = pred.eager(b, seed=7 + i)
+        for k in want:
+            assert (got[k] == want[k]).all(), (i, k)
+
+
+@pytest.mark.gpu
+def test_staged_short_batch_equals_the_padded_batch(cuda):
+    """A short NumPy batch (5 of 8 rows) through the staging ring equals the
+    same batch padded by its last row (`pad_batch`), trimmed, and its eager
+    request, bit for bit; both requests are staged, in one ring."""
+    from egohmr_tpu_torch.data import pad_batch, synthetic_batch
+
+    pred = _staging_predictor(cuda, 8)
+    full = synthetic_batch(8, num_scene_points=2048, img_size=64, seed=2)
+    short = _map_leaves(lambda x: x[:5].copy(), full)
+    pred.warmup(full)
+    staged = pred.staged
+    got, padded = pred(short, seed=3), pred(pad_batch(short, 8), seed=3)
+    assert pred.staged - staged == 2 and len(pred._staging[0].rings) == 1
+    want = pred.eager(short, seed=3)
+    for k in want:
+        assert got[k].shape[0] == 5, k
+        assert (got[k] == padded[k][:5]).all(), k
+        assert (got[k] == want[k]).all(), k
+
+
+@pytest.mark.gpu
+def test_overwriting_the_callers_arrays_after_submit_changes_nothing(cuda):
+    """Three requests submitted back to back, the caller's arrays
+    overwritten right after each `submit`: each request's outputs equal the
+    eager request on the arrays as they were submitted, bit for bit."""
+    from egohmr_tpu_torch.data import synthetic_batch
+
+    pred = _staging_predictor(cuda, 8)
+    batches = [synthetic_batch(8, num_scene_points=2048, img_size=64, seed=20 + i)
+               for i in range(3)]
+    kept = [_map_leaves(lambda x: x.copy(), b) for b in batches]
+    pred.warmup(kept[0])
+    pending = []
+    for i, b in enumerate(batches):
+        pending.append(pred.submit(b, seed=5 + i))
+        _map_leaves(lambda x: x.fill(0), b)
+    for i, p in enumerate(pending):
+        got, want = pred.result(p), pred.eager(kept[i], seed=5 + i)
+        for k in want:
+            assert (got[k] == want[k]).all(), (i, k)
 
 
 @pytest.mark.gpu
