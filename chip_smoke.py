@@ -148,6 +148,21 @@ Phases (any failure exits non-zero):
                kernel ms; (d) submit, blocking and steady-state ms per
                request, eager against graphed, three rounds in turns, with
                each program's capture seconds and pool bytes
+ 15. volsdf  — EgoHMR-VolSMPL on the served path (`Predictor` with
+               `collision_backend="volsdf"`) at full width: 5 x 5 a request,
+               bf16, DDPM-50 guided on its 11 steps t <= 10 at the
+               reference's weight 30 by the shipped 192-wide SDF net over
+               all 20,000 scene points, each guided step's terms recorded:
+               (a) two eager runs of one seed, then the replay equal to
+               eager bit for bit (else within twice their gap); per
+               replayed request `guided_steps` 11 and `field_rows` 11 x 25
+               x 24 x 20,000, the record's 11 steps finite with a non-zero
+               gradient, device ms and peak memory; (b) the same request
+               without `record_guidance` returns no record, its outputs
+               those of (a); (c) the unguided bulk request (64 x 1, DDIM-5,
+               a NumPy batch through the staging ring) under the profiler:
+               22 host calls per replayed request, its device kernels
+               printed
 On the card every `Predictor` of phases 4, 5, 10 and 11 (one device or flat
 replicas) and `bench`'s request modes in phase 12 run their captured
 programs: a replayed launch calls no wrapper, so K1's and K2's counts come
@@ -3836,6 +3851,113 @@ def phase_graphs(cfg, smi: str) -> dict:
     return res
 
 
+VOLSDF_REQUEST = dict(B=5, S=5, weight=30.0)  # the evaluation CLI's 5 x 5, its weight
+BULK_HOST_CALLS = 22  # a replayed bulk request from NumPy: 1 graph launch, 1 kernel, 20 copies
+
+
+def phase_served_volsdf(cfg, smi: str) -> dict:
+    """Phase 15: EgoHMR-VolSMPL on the served path at full width (see the
+    module's docstring): the learned-SDF guided request captured in
+    `Predictor`, its replay against eager, its counters and record; the
+    unguided bulk request's host calls."""
+    from egohmr_tpu_torch.data import synthetic_batch
+    from egohmr_tpu_torch.diffusion import GuidanceConfig, make_schedule
+    from egohmr_tpu_torch.models import BodyRepStats, EgoHMR, init_random_
+    from egohmr_tpu_torch.serving import GUIDANCE_RECORD, Predictor
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the field's f32, as served
+    log("volsdf", smi)
+    model = init_random_(EgoHMR(cfg), seed=0).eval()
+    net, meta = load_learned(WIDE["volsdf"], dev)
+    body = body_of(meta, "cpu")
+    B, S = VOLSDF_REQUEST["B"], VOLSDF_REQUEST["S"]
+    gcfg = GuidanceConfig(cond_grad_weight=VOLSDF_REQUEST["weight"])
+    steps = gcfg.ddpm_threshold + 1
+    batch = numpy_batch(synthetic_batch(B, num_scene_points=P_FULL, seed=30))
+
+    def predictor(**kw):
+        return Predictor(model, cfg, body, BodyRepStats(torch.zeros(144), torch.ones(144)),
+                         make_schedule(50, "cosine", ""), device=dev, batch_size=B,
+                         num_samples=S, sampler="ddpm", pointnet_impl="fused",
+                         with_guidance=True, guidance=gcfg, collision_backend="volsdf",
+                         collision_net=net, guidance_scene_points=None, **kw)
+
+    # (a) the captured request against eager, its counters and record
+    pred = predictor(record_guidance=True)
+    e1, e2 = pred.eager(batch, seed=1), pred.eager(batch, seed=1)
+    eager_gap = max_gap(e1, e2)
+    pred.warmup(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = (pred.guided_steps, pred.field_rows)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    got = pred(batch, seed=1)
+    end.record()
+    torch.cuda.synchronize()
+    ms, peak = start.elapsed_time(end), torch.cuda.max_memory_allocated()
+    counted = (pred.guided_steps - before[0], pred.field_rows - before[1])
+    want_rows = steps * B * S * 24 * P_FULL
+    gap = max_gap(got, e1)
+    bar = 0.0 if eager_gap == 0 else 2 * eager_gap
+    rec = got[GUIDANCE_RECORD]
+    grad = np.abs(rec[:, :, :, 2])
+    log("volsdf", f"(a) {B} x {S}, DDPM-50 guided at weight {gcfg.cond_grad_weight} over "
+                  f"{P_FULL} points: eager against eager max |diff| {eager_gap:.3e}, replay "
+                  f"against eager {gap:.3e} (bar {bar:.3e}); per replayed request guided steps "
+                  f"{counted[0]}, field rows {counted[1]} (want {steps}, {want_rows}); "
+                  f"{ms:.1f} ms on the card, peak {peak / 2 ** 30:.2f} GiB, capture "
+                  f"{pred._programs[0].capture_seconds:.1f} s, pool "
+                  f"{pred._programs[0].pool_bytes / 2 ** 30:.2f} GiB; record {rec.shape}, "
+                  f"|g| max {grad.max():.3e}")
+    if gap > bar:
+        fail("volsdf (a): the replayed request strays from the eager one")
+    if counted != (steps, want_rows):
+        fail(f"volsdf (a): counters {counted}, want {(steps, want_rows)}")
+    if rec.shape[2] != steps or not np.all(np.isfinite(rec)) or grad.max() == 0:
+        fail(f"volsdf (a): the record holds {rec.shape[2]} steps (want {steps}), or a "
+             "non-finite value, or no gradient")
+    del pred
+    torch.cuda.empty_cache()
+
+    # (b) without the record
+    plain = predictor()
+    plain.warmup(batch)
+    out = plain(batch, seed=1)
+    if GUIDANCE_RECORD in out or max_gap(out, {k: got[k] for k in out}) > bar:
+        fail("volsdf (b): a request without record_guidance returned a record, or other "
+             "outputs")
+    log("volsdf", "(b) without record_guidance: no record, the outputs of (a) "
+                  f"(max |diff| {max_gap(out, {k: got[k] for k in out}):.3e})")
+    del plain
+    torch.cuda.empty_cache()
+
+    # (c) the unguided bulk request's host calls and device kernels
+    bulk = Predictor(model, cfg, body, BodyRepStats(torch.zeros(144), torch.ones(144)),
+                     make_schedule(50, "cosine", "ddim5"), device=dev, batch_size=B_TIME,
+                     pointnet_impl="fused")
+    big = numpy_batch(synthetic_batch(B_TIME, num_scene_points=P_FULL, seed=31))
+    bulk.warmup(big)
+    prof = graph_profile(lambda: bulk(big, seed=2))
+    log("volsdf", f"(c) the unguided bulk request, replayed: host launch calls "
+                  f"{prof['host']}, device kernels and copies {prof['device_kernels']} "
+                  f"({prof['kernel_ms']:.2f} ms)")
+    if prof["host"]["total"] != BULK_HOST_CALLS:
+        fail(f"volsdf (c): {prof['host']['total']} host calls, want {BULK_HOST_CALLS}")
+    log("volsdf", f"phase 15 in {time.perf_counter() - t_phase:.1f} s")
+    return {"replay_vs_eager": gap, "eager_vs_eager": eager_gap, "ms": ms, "peak": peak,
+            "bulk_kernels": prof["device_kernels"]}
+
+
+def numpy_batch(batch):
+    """A batch's leaves as NumPy arrays (what a server receives)."""
+    if isinstance(batch, dict):
+        return {k: numpy_batch(v) for k, v in batch.items()}
+    return batch.numpy() if isinstance(batch, torch.Tensor) else np.asarray(batch)
+
+
 def main() -> None:
     smi = phase_device()
     from egohmr_tpu_torch.models import EgoHMRConfig
@@ -3863,6 +3985,7 @@ def main() -> None:
     benched = timed("bench", phase_bench)
     tools = timed("tools", phase_tools)
     graphs = timed("graphs", phase_graphs, cfg, smi)
+    timed("volsdf", phase_served_volsdf, cfg, smi)
     log("main", f"seconds per phase: {json.dumps(seconds)}")
     # launches: over the main paths, each counted from 0 just before it (K3's
     # main path is the probe's own entry point, counted in its phase)

@@ -44,7 +44,7 @@ from torch import nn
 from ..geometry import rot6d_to_rotmat
 from ..interop import collision_net_from_jax
 from ..interop.coap_convert import convert_coap
-from ..models.egohmr import _GUIDE_JOINT_SCALE
+from ..models.egohmr import _guide_joint_scale
 from ..smpl import constants as C
 from ..smpl.model import SMPLModel, SMPLOutput, lbs, lbs_transforms, vertex_normals
 from ..utils.checkpoint import load_npz_tree
@@ -233,7 +233,7 @@ def field_in_chunks(net: PartFieldNet, smpl_out: SMPLOutput, betas: torch.Tensor
     points) are never whole in memory. The field is per point, so chunking
     changes nothing but cuBLAS's blocking."""
     codes = encode_parts(net, smpl_out, betas)
-    n = max(1, QUERY_ROWS // (points.shape[0] * NUM_PARTS))
+    n = chunk_points(points.shape[0], points.shape[1])
     return torch.cat([head(decode_parts(net, codes, p)) for p in points.split(n, dim=1)], dim=1)
 
 
@@ -262,37 +262,67 @@ def occupancy_collision_loss(occ: torch.Tensor,
     return masked_mean_loss(torch.square(torch.clamp(occ - 0.5, min=0.0)), mask)
 
 
-def make_learned_guidance_fn(collision_per_body, model: SMPLModel, cond, stats, *,
+def chunk_points(bodies: int, points: int) -> int:
+    """Scene points per chunk of a field query over `bodies` bodies: at most
+    QUERY_ROWS (body, part, point) rows, at least one point."""
+    return max(1, min(points, QUERY_ROWS // (bodies * NUM_PARTS)))
+
+
+def make_learned_guidance_fn(net: PartFieldNet, penalty, model: SMPLModel, cond, stats, *,
                              max_scene_points: Optional[int] = 4096,
                              global_rows: Optional[int] = None):
     """The guidance of the learned backends: fn(x_t [B, 144], t) -> grad
-    [B, 144] of minus the batch mean of `collision_per_body(smpl_out, betas,
-    scene)` [B] w.r.t. x_t, through rot6d, the skeleton and the learned
-    field, with `make_guidance_fn`'s per-joint 1x/2x scale. The field reads
-    only the posed skeleton, so the body is posed by `lbs_transforms` alone
-    (no vertex is skinned). The gradient is taken w.r.t. x_t only, under
-    `torch.enable_grad()`, so the function works inside a `torch.no_grad()`
-    caller. `global_rows`: the bodies the mean runs over, as in
+    [B, 144] of minus the batch mean of each body's collision loss w.r.t.
+    x_t, through rot6d, the skeleton and the learned field `net`, with
+    `make_guidance_fn`'s per-joint 1x/2x scale. A body's loss is the mean
+    over its scene points of `penalty(raw)` ([B, 24, p] part field -> [B,
+    p] per-point penalty). The field reads only the posed skeleton, so the
+    body is posed by `lbs_transforms` alone (no vertex is skinned).
+
+    `max_scene_points`: the scene's top-K points nearest the canonical
+    origin (`topk_scene_points`; None: every point). The field's forward
+    and its backward run over the points in chunks of at most QUERY_ROWS
+    (body, part, point) rows (`chunk_points`), so that a whole 20,000-point
+    scene's activations are never whole in memory: each chunk's gradient
+    w.r.t. the part codes (frames and the latent's share of the first
+    decoder layer) is summed, then taken back to x_t once. That is the
+    unchunked gradient up to f32 summation order.
+
+    The gradient is taken w.r.t. x_t only, under `torch.enable_grad()`, so
+    the function works inside a `torch.no_grad()` caller; it reads nothing
+    back to the host and allocates by shape alone, so it runs inside a CUDA
+    graph's capture. `global_rows`: the bodies the mean runs over, as in
     `make_guidance_fn` (a data-parallel shard passes the whole batch's)."""
-    scale = torch.tensor(_GUIDE_JOINT_SCALE, device=cond.scene_pcd.device)[None, :, None]
+    scale = _guide_joint_scale(cond.scene_pcd.device)
     betas = cond.pred_betas.detach()
     scene = topk_scene_points(cond.scene_pcd.detach(), max_scene_points)
-
-    def neg_collision(x_t: torch.Tensor) -> torch.Tensor:
-        pose6d = x_t * stats.std + stats.mean
-        rotmat = rot6d_to_rotmat(pose6d, "diffusion").reshape(-1, 24, 3, 3)
-        _, _, joints, _ = lbs_transforms(model, betas, rotmat)
-        out = SMPLOutput(vertices=None, joints=None, full_pose=rotmat, joints_smpl=joints)
-        per_body = collision_per_body(out, betas, scene)
-        return -torch.sum(per_body) / (global_rows or per_body.shape[0])
+    chunks = scene.split(chunk_points(scene.shape[0], scene.shape[1]), dim=1)
 
     def fn(x_t: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        weight = -1.0 / ((global_rows or x_t.shape[0]) * scene.shape[1])
         with torch.enable_grad():
             x = x_t.detach().requires_grad_(True)
-            (grad,) = torch.autograd.grad(neg_collision(x), x)
+            rotmat = rot6d_to_rotmat(x * stats.std + stats.mean,
+                                     "diffusion").reshape(-1, 24, 3, 3)
+            _, _, joints, _ = lbs_transforms(model, betas, rotmat)
+            out = SMPLOutput(vertices=None, joints=None, full_pose=rotmat, joints_smpl=joints)
+            codes = encode_parts(net, out, betas)
+            leaves = PartCodes(*(c.detach().requires_grad_(True) for c in codes))
+            total = None
+            for pts in chunks:
+                loss = torch.sum(penalty(decode_parts(net, leaves, pts))) * weight
+                grads = torch.autograd.grad(loss, leaves)
+                total = grads if total is None else [a + g for a, g in zip(total, grads)]
+            (grad,) = torch.autograd.grad(codes, x, grad_outputs=total)
         return (grad.reshape(-1, 24, 6) * scale).reshape(x_t.shape[0], 144)
 
     return fn
+
+
+def occupancy_penalty(raw: torch.Tensor) -> torch.Tensor:
+    """The occupancy backend's per-point penalty of a raw part field [B, 24,
+    p]: the squared occupancy above 0.5 (`occupancy_collision_loss`'s)."""
+    return torch.square(torch.clamp(occupancy_from_raw(raw) - 0.5, min=0.0))
 
 
 def make_occupancy_guidance_fn(net: PartFieldNet, model: SMPLModel, cond, stats, *,
@@ -300,10 +330,7 @@ def make_occupancy_guidance_fn(net: PartFieldNet, model: SMPLModel, cond, stats,
                                global_rows: Optional[int] = None):
     """Collision guidance through the learned occupancy in place of the mesh
     SDF (`--collision_backend occupancy`)."""
-    def collision_per_body(out, betas, scene):
-        return occupancy_collision_loss(occupancy_query(net, out, betas, scene))
-
-    return make_learned_guidance_fn(collision_per_body, model, cond, stats,
+    return make_learned_guidance_fn(net, occupancy_penalty, model, cond, stats,
                                     max_scene_points=max_scene_points,
                                     global_rows=global_rows)
 

@@ -74,11 +74,12 @@ def make_volsdf_guidance_fn(net: PartFieldNet, model: SMPLModel, cond, stats, *,
                             max_scene_points: Optional[int] = 4096,
                             global_rows: Optional[int] = None):
     """Collision guidance through the learned SDF in place of the mesh SDF
-    (`--collision_backend volsdf`)."""
-    def collision_per_body(out, betas, scene):
-        return sdf_collision_loss(sdf_query(net, out, betas, scene))
+    (`--collision_backend volsdf`): each point's penalty is its squared
+    penetration depth (`sdf_collision_loss`'s)."""
+    def penalty(raw):
+        return torch.square(torch.clamp(-sdf_from_raw(net.cfg, raw), min=0.0))
 
-    return make_learned_guidance_fn(collision_per_body, model, cond, stats,
+    return make_learned_guidance_fn(net, penalty, model, cond, stats,
                                     max_scene_points=max_scene_points,
                                     global_rows=global_rows)
 

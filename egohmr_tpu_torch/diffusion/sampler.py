@@ -107,23 +107,29 @@ def _ddpm_step(schedule: DiffusionSchedule, denoise_fn: DenoiseFn,
                guidance_fn: Optional[GuidanceFn], gcfg: GuidanceConfig,
                x: torch.Tensor, t_idx: int, gaux,
                generator: Optional[torch.Generator], shard: Shard = None,
-               noise: Optional[torch.Tensor] = None):
+               noise: Optional[torch.Tensor] = None, record: Optional[list] = None):
     t = torch.full((x.shape[0],), t_idx, dtype=torch.int64, device=x.device)
     pred_xstart = denoise_fn(x, schedule.timestep_map[t])
     mean = q_posterior_mean(schedule, pred_xstart, x, t)
+    terms = None
     if guidance_fn is not None and t_idx <= gcfg.ddpm_threshold:
         grad, gaux = _call_guidance(guidance_fn, x, t, gaux)
         if t_idx >= gcfg.ddpm_fixed_below:
             coeff = gcfg.cond_grad_weight * schedule.posterior_variance[t][:, None]
         else:
             coeff = gcfg.cond_grad_weight * gcfg.ddpm_fixed_coeff
+        terms = (x, mean, grad)
         mean = mean + coeff * grad
     if t_idx == 0:  # the last step adds no noise
-        return mean, gaux
-    sigma = torch.exp(0.5 * schedule.posterior_log_variance_clipped[t])[:, None]
-    if noise is None:
-        noise = _step_noise(x, generator, shard)
-    return mean + sigma * noise, gaux
+        out = mean
+    else:
+        sigma = torch.exp(0.5 * schedule.posterior_log_variance_clipped[t])[:, None]
+        if noise is None:
+            noise = _step_noise(x, generator, shard)
+        out = mean + sigma * noise
+    if terms is not None and record is not None:
+        record.append(torch.stack([*terms, out]).float())
+    return out, gaux
 
 
 def _ddim_step(schedule: DiffusionSchedule, denoise_fn: DenoiseFn,
@@ -171,6 +177,7 @@ def sample_loop(
     dump_steps: Optional[Sequence[int]] = None,
     shard: Shard = None,
     step_noise: Optional[torch.Tensor] = None,
+    guidance_record: Optional[list] = None,
 ):
     """Run the reverse diffusion; returns (final_sample, final_pred_xstart).
 
@@ -193,9 +200,17 @@ def sample_loop(
     `dump_steps`: 0-based loop-iteration indices (0 = the noisiest step)
     whose post-step samples to return as well; with it the result is
     (final_sample, final_pred_xstart, dumps [K, B, D]). Out-of-range
-    indices raise."""
+    indices raise.
+
+    `guidance_record` (DDPM): a list to which each guided step appends its
+    terms, [4, rows, D] f32: the step's input x_t, its posterior mean mu_t,
+    the guidance's gradient g_t and the step's output, mu_t + c_t g_t +
+    sigma_t z_t with c_t the guidance's coefficient and z_t the step's
+    noise. Nothing is recorded without it."""
     if sampler not in ("ddpm", "ddim"):
         raise ValueError(f"unknown sampler: {sampler}")
+    if guidance_record is not None and sampler != "ddpm":
+        raise ValueError("the guidance record is DDPM's (its steps' posterior mean)")
     if noise is None:
         x = draw_rows(shard, shape[0], lambda n: torch.randn(
             (n, *shape[1:]), generator=generator, device=generator.device))
@@ -227,7 +242,8 @@ def sample_loop(
         noise_k = None if step_noise is None or k >= step_noise.shape[0] else step_noise[k]
         if sampler == "ddpm":
             x, gaux = _ddpm_step(schedule, denoise_fn, guidance_fn, guidance,
-                                 x, t_idx, gaux, generator, shard, noise_k)
+                                 x, t_idx, gaux, generator, shard, noise_k,
+                                 record=guidance_record)
         else:
             x, gaux = _ddim_step(schedule, denoise_fn, guidance_fn, guidance,
                                  eta, x, t_idx, gaux, generator, shard, noise_k)

@@ -7,7 +7,7 @@ axis, so all S samples of all B images run in one sampling loop.
 from __future__ import annotations
 
 from functools import partial
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -18,13 +18,14 @@ from ..collision import (
     signed_distance,
 )
 from ..collision.neural_occupancy import (
+    NUM_PARTS,
     PartFieldNet,
     field_in_chunks,
     make_occupancy_guidance_fn,
     occupancy_from_raw,
 )
 from ..collision.neural_sdf import make_volsdf_guidance_fn, sdf_from_raw
-from ..diffusion import DiffusionSchedule, GuidanceConfig, sample_loop
+from ..diffusion import DiffusionSchedule, GuidanceConfig, StatefulGuidanceFn, sample_loop
 from ..models import (
     BodyRepStats,
     Condition,
@@ -39,6 +40,7 @@ from ..nn import cast_params_bf16
 from ..parallel.mesh import Shard, global_rows
 from ..parallel.tp import TensorParallel
 from ..smpl import SMPLModel, SMPLOutput, lbs, vertex_normals
+from ..utils.graphs import count_launch
 from ..utils.profiling import mark
 from .metrics import (
     apd,
@@ -86,6 +88,9 @@ def sample_bodies(
     step_noise: Optional[torch.Tensor] = None,
     shard: Shard = None,
     tp: Optional[TensorParallel] = None,
+    guidance_scene_points: Optional[int] = 4096,
+    record_guidance: bool = False,
+    counter: Any = None,
 ) -> Tuple[Dict[str, torch.Tensor], Condition]:
     """Draw `num_samples` bodies per image; outputs are [B, S, ...].
 
@@ -128,7 +133,20 @@ def sample_bodies(
     `tp`: `model` placed over a data row's model axis (`parallel.tp`;
     `model` is `tp.module`, and with `bf16` a bf16 copy placed, so
     `params_precast` must be set): the scene encoder and the denoiser run
-    split, everything else on the row's first device."""
+    split, everything else on the row's first device.
+
+    `guidance_scene_points`: the guidance's cap on scene points, the top-K
+    nearest the canonical origin (`collision.topk_scene_points`), for every
+    backend; None: the whole cloud (the reference EgoHMR-VolSMPL's
+    setting). 4096 is the JAX package's. `record_guidance` (DDPM): the
+    outputs gain "guidance_record" [B, S, G, 4, 144] f32, each of the G
+    guided steps' input x_t, posterior mean, gradient and output
+    (`sample_loop`'s `guidance_record`). Each guided step's guidance is marked on the device
+    (`utils/profiling.py:mark`, "guide" and "guide_end"), and, with
+    `counter`, counted on it (`utils/graphs.py:count_launch`, so that a
+    replayed request counts too): `guided_steps`, and `field_rows`, the
+    (body, part, scene point) rows the learned field evaluates (0 for the
+    mesh SDF)."""
     if guidance_grad_mode != "exact" and collision_backend != "sdf":
         raise ValueError("guidance_grad_mode is an sdf-backend profiling "
                          "seam; use --collision_backend sdf")
@@ -146,6 +164,8 @@ def sample_bodies(
     if with_guidance and collision_backend != "sdf" and occ_net is None:
         raise ValueError(f"collision_backend {collision_backend!r} needs a learned "
                          "collision net (occ_net)")
+    if record_guidance and not with_guidance:
+        raise ValueError("record_guidance records the guided steps: it needs with_guidance")
     if use_stage1_transl and "stage1_transl_full" in batch:
         batch = dict(batch)
         batch["smpl_params"] = dict(batch["smpl_params"])
@@ -173,26 +193,56 @@ def sample_bodies(
         # cond_s is f32 here on the bf16 path too: the guidance, like SMPL
         # and the reprojection, runs in f32
         rows = global_rows(shard, B * num_samples)
+        kw = dict(max_scene_points=guidance_scene_points, global_rows=rows)
         if collision_backend == "occupancy":
-            guidance_fn = make_occupancy_guidance_fn(occ_net, smpl, cond_s, stats,
-                                                     global_rows=rows)
+            guidance_fn = make_occupancy_guidance_fn(occ_net, smpl, cond_s, stats, **kw)
         elif collision_backend == "volsdf":
-            guidance_fn = make_volsdf_guidance_fn(occ_net, smpl, cond_s, stats,
-                                                  global_rows=rows)
+            guidance_fn = make_volsdf_guidance_fn(occ_net, smpl, cond_s, stats, **kw)
         else:
             guidance_fn = make_guidance_fn(
                 model, cfg, smpl, cond_s, stats,
-                selection_refresh_every=guidance_refresh_every, global_rows=rows,
-                grad_mode=guidance_grad_mode)
+                selection_refresh_every=guidance_refresh_every, grad_mode=guidance_grad_mode,
+                **kw)
+        points = cond_s.scene_pcd.shape[1]
+        if guidance_scene_points is not None:
+            points = min(points, guidance_scene_points)
+        field_rows = 0 if collision_backend == "sdf" else B * num_samples * NUM_PARTS * points
+        guidance_fn = _marked(guidance_fn, counter, field_rows)
+    record = [] if record_guidance else None
     mark("sampler", batch["img"])
     _, x0 = sample_loop(schedule, denoise, generator, (B * num_samples, 144),
                         sampler=sampler, guidance_fn=guidance_fn,
                         guidance=guidance, noise=noise, shard=shard,
-                        step_noise=step_noise)
+                        step_noise=step_noise, guidance_record=record)
     mark("smpl", x0)
     out = model_outputs(cfg, smpl, cond_s, x0, stats)
     out = {k: v.reshape(B, num_samples, *v.shape[1:]) for k, v in out.items()}
+    if record is not None:
+        # [G, 4, B * S, 144] -> [B, S, G, 4, 144], rows image-major
+        rec = torch.stack(record) if record else x0.new_zeros((0, 4) + x0.shape)
+        out["guidance_record"] = rec.permute(2, 0, 1, 3).reshape(
+            B, num_samples, rec.shape[0], 4, x0.shape[-1])
     return out, cond
+
+
+def _marked(guidance_fn, counter: Any, field_rows: int):
+    """`guidance_fn` with each call marked on the device ("guide" before,
+    "guide_end" after) and, with `counter`, counted: `guided_steps` one,
+    `field_rows` `field_rows`."""
+    def wrap(fn):
+        def marked(x, *args):
+            mark("guide", x)
+            if counter is not None:
+                count_launch(counter, "guided_steps")
+                count_launch(counter, "field_rows", field_rows)
+            out = fn(x, *args)
+            mark("guide_end", out[0] if isinstance(out, tuple) else out)
+            return out
+        return marked
+
+    if isinstance(guidance_fn, StatefulGuidanceFn):
+        return guidance_fn._replace(fn=wrap(guidance_fn.fn))
+    return wrap(guidance_fn)
 
 
 class EvalResult(NamedTuple):

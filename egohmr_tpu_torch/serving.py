@@ -52,6 +52,7 @@ import torch
 
 from .data import pad_batch, to_torch
 from .data.staging import Staged, Staging, numpy_leaves
+from .collision.neural_occupancy import PartFieldNet
 from .diffusion import DiffusionSchedule, GuidanceConfig, draw_step_noise
 from .eval.pipeline import sample_bodies
 from .models import BodyRepStats, EgoHMR, EgoHMRConfig
@@ -69,6 +70,8 @@ _OUTPUT_KEYS = (
     "pred_keypoints_3d_full", "pred_keypoints_2d_full",
 )
 MESH_OUTPUT_KEYS = _OUTPUT_KEYS + ("pred_vertices",)
+# the output key of the guided steps' record (`record_guidance`)
+GUIDANCE_RECORD = "guidance_record"
 
 
 class Pending(NamedTuple):
@@ -92,6 +95,21 @@ class Predictor:
     reprojection. `pointnet_impl` overrides
     `cfg.pointnet_impl`: the scene encoder is kernel K1 by default
     ("fused"), or plain torch matmuls ("xla").
+
+    The guidance's gradient comes from `collision_backend`: the mesh SDF
+    ("sdf", kernel K2), or the learned part-wise occupancy ("occupancy") or
+    signed-distance ("volsdf", EgoHMR-VolSMPL's) net `collision_net` (a
+    `PartFieldNet`; each replica gets a copy on its device), which runs in
+    float32 on the bf16 path too, its matmuls as the process's settings
+    have them (TF32 off by default), over the scene in chunks of points.
+    `guidance_scene_points` caps the scene points the guidance reads (the
+    top-K nearest the canonical origin; None: the whole cloud).
+    `record_guidance` (guided DDPM) returns, with the outputs, each guided
+    step's terms under "guidance_record" ([n, S, G, 4, 144] f32: x_t, the
+    posterior mean, the gradient, the step's output; `sample_loop`'s
+    `guidance_record`).
+    `guided_steps` and `field_rows` count the guidance's work, replays
+    included.
 
     `device` may be a sequence of devices (the JAX package's 1-D `mesh=`):
     `batch_size` must divide by its length; each entry holds a replica
@@ -150,6 +168,10 @@ class Predictor:
         sampler: str = "ddim",
         with_guidance: bool = False,
         guidance: GuidanceConfig = GuidanceConfig(),
+        collision_backend: str = "sdf",
+        collision_net: Optional[PartFieldNet] = None,
+        guidance_scene_points: Optional[int] = 4096,
+        record_guidance: bool = False,
     ):
         entries = list(device) if isinstance(device, (list, tuple)) else [device]
         if not entries:
@@ -183,7 +205,25 @@ class Predictor:
         self.sampler = sampler
         self.with_guidance = with_guidance
         self.guidance = guidance
-        self._output_keys = tuple(output_keys)
+        if collision_backend not in ("sdf", "occupancy", "volsdf"):
+            raise ValueError(f"unknown collision_backend: {collision_backend}")
+        if collision_backend == "sdf" and collision_net is not None:
+            raise ValueError("collision_net is the learned backends' net; the mesh SDF "
+                             "(collision_backend 'sdf') takes none")
+        if with_guidance and collision_backend != "sdf" and collision_net is None:
+            raise ValueError(f"collision_backend {collision_backend!r} needs a learned "
+                             "collision net (collision_net)")
+        if record_guidance and not (with_guidance and sampler == "ddpm"):
+            raise ValueError("record_guidance records the guided DDPM steps: it needs "
+                             "with_guidance and sampler 'ddpm'")
+        if record_guidance and pack_dtype != torch.float32:
+            raise ValueError("the guidance record is read back in float32: it needs "
+                             "pack_dtype torch.float32")
+        self.collision_backend = collision_backend
+        self.guidance_scene_points = guidance_scene_points
+        self.record_guidance = record_guidance
+        self._output_keys = tuple(output_keys) + (
+            (GUIDANCE_RECORD,) if record_guidance else ())
         if bf16:
             model = cast_params_bf16(model)
         # per data block: its model and, under tp > 1, its placement
@@ -199,12 +239,24 @@ class Predictor:
             (rep, smpl.to(d), BodyRepStats(stats.mean.to(d), stats.std.to(d)),
              schedule.to(d), placed)
             for d, (rep, placed) in zip(self.devices, blocks)]
+        # the learned collision net in f32 on each data block's first device;
+        # the guidance differentiates w.r.t. x_t alone
+        self._collision_nets = [
+            None if collision_net is None else
+            (collision_net if i == 0 else copy.deepcopy(collision_net)).to(d).eval()
+            .requires_grad_(False)
+            for i, d in enumerate(self.devices)]
         self._layout = None  # [(key, trailing_shape, offset, size)]
         self._requests = itertools.count()  # each request's number, for its spans
         self.captured = self.tp == 1 and self.device.type == "cuda"
         n = len(self.devices)
         self.staged = 0  # requests uploaded through the staging rings
         self.unstaged = 0  # requests that took `to_torch`
+        # the guidance's work, counted where it runs (a replay counts too):
+        # guided steps, and the (body, part, scene point) rows the learned
+        # field evaluates over them (0 for the mesh SDF)
+        self.guided_steps = 0
+        self.field_rows = 0
         # each replica's block of a request, staged on its device. Request j
         # writes the host slot of request j - depth once that slot's
         # transfer is done. The transfer starts when request j - depth - 2
@@ -243,12 +295,16 @@ class Predictor:
             outs[k].shape[0], self.num_samples, -1) for k in keys]
         return torch.cat(flat, dim=-1)
 
-    def _sample(self, replica, batch: Dict, generator: torch.Generator, **kw) -> Dict:
+    def _sample(self, replica, net: Optional[PartFieldNet], batch: Dict,
+                generator: torch.Generator, **kw) -> Dict:
         model, smpl, stats, schedule, placed = replica
         outs, _ = sample_bodies(
             model, self.cfg, smpl, stats, schedule,
             batch, generator, self.num_samples, sampler=self.sampler,
             with_guidance=self.with_guidance, guidance=self.guidance,
+            collision_backend=self.collision_backend, occ_net=net,
+            guidance_scene_points=self.guidance_scene_points,
+            record_guidance=self.record_guidance, counter=self,
             bf16=self.bf16, params_precast=self.bf16, tp=placed, **kw)
         return outs
 
@@ -257,7 +313,8 @@ class Predictor:
         """One replica's request, the program that is captured: the block
         `shard` of the batch from x_T and the steps' noise to the packed
         outputs. It draws nothing."""
-        packed = self._pack(self._sample(replica, batch, None, noise=x_T,
+        net = self._collision_nets[shard[0]]
+        packed = self._pack(self._sample(replica, net, batch, None, noise=x_T,
                                          step_noise=step_noise, shard=shard))
         mark("end", packed)
         return packed

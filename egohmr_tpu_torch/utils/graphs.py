@@ -53,14 +53,16 @@ CAPTURE_ERROR_MODE = "thread_local"
 _capturing: List[Dict[Tuple[int, str], list]] = []
 
 
-def count_launch(counter: Any, attr: str = "launches") -> None:
-    """Called by a kernel's wrapper where it launches its kernel: one more
-    on `counter.attr`, or, while a `CapturedProgram` captures, one more on
-    every replay of that program."""
+def count_launch(counter: Any, attr: str = "launches", n: int = 1) -> None:
+    """Called by a kernel's wrapper where it launches its kernel: `n` more
+    (one launch by default) on `counter.attr`, or, while a
+    `CapturedProgram` captures, `n` more on every replay of that program.
+    A program's counters of its own work (`Predictor.field_rows`) count
+    the same way."""
     if _capturing:
-        _capturing[-1].setdefault((id(counter), attr), [counter, attr, 0])[2] += 1
+        _capturing[-1].setdefault((id(counter), attr), [counter, attr, 0])[2] += n
     else:
-        setattr(counter, attr, getattr(counter, attr) + 1)
+        setattr(counter, attr, getattr(counter, attr) + n)
 
 
 def _flatten(tree: Any, leaves: List[torch.Tensor]) -> Any:

@@ -7,8 +7,8 @@ spans and device phase markers.
     `torch.profiler` session records: a range on the trace's timeline and
     a record in a bounded store in memory (`recorded()`, `clear()`);
   * `mark(phase, like)` queues an empty kernel named for a request's phase
-    (`csrc/markers.cu`), so the device's timeline shows where each phase
-    begins, inside a replayed CUDA graph too;
+    or for a mark inside one (`csrc/markers.cu`), so the device's timeline
+    shows where each begins, inside a replayed CUDA graph too;
   * `host_launches` and `device_kernels` sum a session's host launch calls
     and device kernels.
 """
@@ -125,7 +125,13 @@ def clear() -> None:
 # phase runs from its marker to the next one
 PHASES = ("image", "scene", "sampler", "smpl", "end")
 MARKER_PREFIX = "egohmr_phase_"
-_phase_index = {p: i for i, p in enumerate(PHASES)}
+# marks inside the sampler phase, around each guided step's guidance (its
+# gradient, `eval/pipeline.py:sample_bodies`): `mark("guide")` queues
+# `STEP_MARKER_PREFIX + "guide"`. They are named apart from the phases, so
+# a reader of the five phases in order passes over them
+STEP_MARKS = ("guide", "guide_end")
+STEP_MARKER_PREFIX = "egohmr_step_"
+_phase_index = {p: i for i, p in enumerate(PHASES + STEP_MARKS)}
 _markers = None
 _marking = 0
 
@@ -158,14 +164,15 @@ def marking() -> Iterator[None]:
 
 
 def mark(phase: str, like: torch.Tensor) -> None:
-    """Queue the empty kernel `egohmr_phase_<phase>` on the current stream
-    of `like`'s device: the device's timeline then shows where `phase`
-    begins. It launches while that stream captures a CUDA graph (every
+    """Queue the empty kernel `egohmr_phase_<phase>` (`egohmr_step_<phase>`
+    for the `STEP_MARKS`) on the current stream of `like`'s device: the
+    device's timeline then shows where `phase` begins. It launches while that stream captures a CUDA graph (every
     replay then carries it), inside `marking()`, and while a profiler
     records; otherwise, and on the CPU, it does nothing."""
     index = _phase_index.get(phase)
     if index is None:
-        raise ValueError(f"unknown phase {phase!r}; the phases are {PHASES}")
+        raise ValueError(f"unknown phase {phase!r}; the phases are {PHASES}, the marks "
+                         f"inside one {STEP_MARKS}")
     dev = like.device
     if dev.type != "cuda":
         return

@@ -952,3 +952,77 @@ def test_request_phases_on_the_card(cuda, tmp_path):
             assert (got[k] == want[k]).all(), k
     _, marks, _ = traced(lambda: pred.eager(batch, seed=3))
     assert [p for _, p in marks] == list(PHASES)
+
+
+@pytest.mark.gpu
+def test_captured_volsdf_request_equals_eager(cuda):
+    """EgoHMR-VolSMPL on the served path at the evaluation CLI's 5 x 5: the
+    learned-SDF guided DDPM-50 request (the shipped 192-wide net, weight
+    30, all 20,000 scene points) captured in `Predictor` equals its eager
+    run bit for bit (within twice two eager runs' gap where those differ);
+    per replayed request `guided_steps` is 11 and `field_rows` 11 x 25 x 24
+    x 20,000; the record holds 11 finite steps with a non-zero gradient,
+    and a request without `record_guidance` none; the unguided bulk
+    request, replayed from a NumPy batch, makes 22 host calls."""
+    import os
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from egohmr_tpu_torch.collision.neural_sdf import load_sdfnet
+    from egohmr_tpu_torch.data import synthetic_batch
+    from egohmr_tpu_torch.diffusion import GuidanceConfig, make_schedule
+    from egohmr_tpu_torch.models import BodyRepStats, EgoHMR, EgoHMRConfig
+    from egohmr_tpu_torch.serving import GUIDANCE_RECORD, Predictor
+    from egohmr_tpu_torch.smpl import make_synthetic_watertight_model
+    from egohmr_tpu_torch.utils.profiling import host_launches
+
+    def numpy_tree(t):
+        return {k: numpy_tree(v) for k, v in t.items()} if isinstance(t, dict) else \
+            (t.numpy() if isinstance(t, torch.Tensor) else np.asarray(t))
+
+    def gap(a, b):
+        return max(float(np.abs(a[k] - b[k]).max()) for k in a)
+
+    cfg = EgoHMRConfig()
+    model = init_random_(EgoHMR(cfg), seed=0).eval()
+    net = load_sdfnet(os.path.join(os.path.dirname(__file__), "..", "artifacts",
+                                   "volsdf_synthetic.npz"), cuda)
+    body = make_synthetic_watertight_model()
+    stats = BodyRepStats(torch.zeros(144), torch.ones(144))
+    batch = numpy_tree(synthetic_batch(5, num_scene_points=20000, seed=30))
+
+    def predictor(**kw):
+        return Predictor(model, cfg, body, stats, make_schedule(50, "cosine", ""), device=cuda,
+                         batch_size=5, num_samples=5, sampler="ddpm", with_guidance=True,
+                         guidance=GuidanceConfig(cond_grad_weight=30.0),
+                         collision_backend="volsdf", collision_net=net,
+                         guidance_scene_points=None, **kw)
+
+    pred = predictor(record_guidance=True)
+    e1, e2 = pred.eager(batch, seed=1), pred.eager(batch, seed=1)
+    pred.warmup(batch)
+    before = (pred.guided_steps, pred.field_rows)
+    got = pred(batch, seed=1)
+    assert (pred.guided_steps - before[0], pred.field_rows - before[1]) == (11, 11 * 25 * 24
+                                                                            * 20000)
+    eager_gap = gap(e1, e2)
+    assert gap(got, e1) <= (0.0 if eager_gap == 0 else 2 * eager_gap)
+    rec = got[GUIDANCE_RECORD]
+    assert rec.shape == (5, 5, 11, 4, 144) and np.isfinite(rec).all()
+    assert np.abs(rec[:, :, :, 2]).max() > 0
+    del pred
+    plain = predictor()
+    out = plain(batch, seed=1)
+    assert GUIDANCE_RECORD not in out and sorted(out) == sorted(k for k in got
+                                                                if k != GUIDANCE_RECORD)
+    del plain
+    bulk = Predictor(model, cfg, body, stats, make_schedule(50, "cosine", "ddim5"),
+                     device=cuda, batch_size=64)
+    big = numpy_tree(synthetic_batch(64, num_scene_points=20000, seed=31))
+    bulk.warmup(big)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        bulk(big, seed=2)
+        torch.cuda.synchronize()
+    assert host_launches(prof)["total"] == 22
