@@ -13,7 +13,10 @@ Phases (any failure exits non-zero):
                where there is one, the one-call library route; then run
                the probe proper (`tools/probe_int8_mma.py`, its defaults)
                and hold each variant to its peak and to cuBLAS's rate on
-               one 8192^3 product
+               one 8192^3 product; hold the graph-convolution epilogue
+               (`nn/gconv_epilogue.py`) to its plain statement at the
+               bulk (128) and mesh-guided (160) denoiser rows and time it
+               against the plain glue it replaces and its bound
   4. serve   — serve unguided requests at full width (ResNet-50, 20k scene
                points, 6890-vertex synthetic SMPL, DDIM-5, bf16, random
                weights from a seed) through `serving.Predictor`, counting
@@ -70,7 +73,7 @@ Phases (any failure exits non-zero):
                batch 64 and DDPM-50 at batch 16, bf16 with K1 (K1 once and
                K2 never per request), request and guided-step times, peak
                memory, and guidance lowering the learned collision loss at
-               raised weights; (d) the evaluation CLI with
+               raised weights, pooled over 5 scenes; (d) the evaluation CLI with
                `--collision_backend occupancy` and `test_egohmr_volsmpl` at
                their defaults (K1 and K2 once per batch), against their f32
                plain runs and the sdf backend's collision ratio; (e) both
@@ -224,16 +227,37 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
 
 
 # K1's and K2's device kernels per wrapper call: K1 is four stage and four
-# context kernels, K2 one search kernel (and, split, a combine kernel)
-DEVICE_KERNELS = {"k1": ("stage_kernel", 4), "k2": ("nearest_vertex_kernel", 1)}
-# K1's and K2's launches in the main paths' requests run under the
-# profiler, counted from the device's kernels (`profiled_launches`)
-PROFILED = {"k1": 0, "k2": 0}
+# context kernels, K2 one search kernel (and, split, a combine kernel); the
+# graph-convolution epilogue one kernel a fused convolution
+DEVICE_KERNELS = {"k1": ("stage_kernel", 4), "k2": ("nearest_vertex_kernel", 1),
+                  "gconv": ("gconv_epilogue_kernel", 1)}
+# their launches in the main paths' requests run under the profiler,
+# counted from the device's kernels (`profiled_launches`)
+PROFILED = {"k1": 0, "k2": 0, "gconv": 0}
+# fused graph convolutions on each phase's main paths, each path counted from
+# 0 just before it, as K1's and K2's launches are (`gconv_starts`, `gconv_ends`)
+GCONV = {}
+
+
+def gconv_starts() -> None:
+    """A main path starts: the fused graph convolutions count from 0."""
+    from egohmr_tpu_torch.nn import gconv_epilogue as ge
+
+    ge.gconv_fused = 0
+
+
+def gconv_ends(phase: str) -> int:
+    """A main path ends: its fused graph convolutions, added to `phase`'s."""
+    from egohmr_tpu_torch.nn import gconv_epilogue as ge
+
+    GCONV[phase] = GCONV.get(phase, 0) + ge.gconv_fused
+    return ge.gconv_fused
 
 
 def launches_on_device(prof) -> dict:
-    """K1's and K2's wrapper calls in a profiler session, counted from the
-    device kernels it recorded, inside graph replays too."""
+    """K1's, K2's and the epilogue's wrapper calls in a profiler session,
+    counted from the device kernels it recorded, inside graph replays
+    too."""
     import re
 
     out = {}
@@ -249,25 +273,28 @@ def launches_on_device(prof) -> dict:
 
 def profiled_launches(request, what: str, want: dict = None):
     """`request()` on a synchronised card under the profiler: its result and
-    K1's and K2's launches in it, counted from the device's kernels. Fails
-    unless the wrappers' counts (for a replayed request, its program's
-    replay accounting) equal them, and `want` where given. Adds them to
-    PROFILED."""
+    K1's, K2's and the fused graph convolutions' launches in it, counted
+    from the device's kernels. Fails unless the wrappers' counts (for a
+    replayed request, its program's replay accounting) equal them, and
+    `want` on the kernels it names. Adds them to PROFILED."""
     from torch.profiler import ProfilerActivity, profile
 
     from egohmr_tpu_torch.collision import knn as k2
+    from egohmr_tpu_torch.nn import gconv_epilogue as ge
     from egohmr_tpu_torch.nn import pointnet_fused as k1
 
     torch.cuda.synchronize()
-    b1, b2 = k1.launches, k2.launches
+    b1, b2, b3 = k1.launches, k2.launches, ge.gconv_fused
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         out = request()
         torch.cuda.synchronize()
-    counted = {"k1": k1.launches - b1, "k2": k2.launches - b2}
+    counted = {"k1": k1.launches - b1, "k2": k2.launches - b2, "gconv": ge.gconv_fused - b3}
     device = launches_on_device(prof)
-    if counted != device or (want is not None and device != want):
-        fail(f"{what}: K1 and K2 launches {counted} by the wrappers' counts, {device} by the "
-             "device kernels under the profiler" + (f" (want {want})" if want else ""))
+    if counted != device or (want is not None
+                             and any(device[k] != v for k, v in want.items())):
+        fail(f"{what}: K1, K2 and epilogue launches {counted} by the wrappers' counts, "
+             f"{device} by the device kernels under the profiler"
+             + (f" (want {want})" if want else ""))
     for k in PROFILED:
         PROFILED[k] += device[k]
     return out, device
@@ -315,7 +342,7 @@ def phase_device() -> str:
 def phase_build() -> None:
     from egohmr_tpu_torch import _build
 
-    names = ["pointnet_fused", "nearest_vertex", "probe_mma", "markers"]
+    names = ["pointnet_fused", "nearest_vertex", "probe_mma", "markers", "gconv_epilogue"]
     t0 = time.perf_counter()
     _build.build(names)
     log("build", f"{', '.join(n + '.cu' for n in names)} built for sm_90a in "
@@ -419,6 +446,103 @@ def phase_kernel_k1(cfg) -> dict:
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, **b,
             "library_ms": None, "f32_pointnet_ms": f32_ms, "bf16_pointnet_ms": bf16_ms,
             "ms_b16": small[16], "ms_b8": small[8], "by_kernel_ms": parts}
+
+
+# fused graph convolutions a denoiser call at EgoHMRConfig()'s 4 residual
+# blocks: the input one and two a block (the output convolution stays plain)
+GCONV_PER_CALL = 9
+
+
+def device_ms(fn, n: int = 50) -> float:
+    """Device time of one `fn()` (every kernel it launches), from the
+    profiler over n calls after one more."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    if total <= 0:
+        fail("the profiler recorded no device time")
+    return total / 1e3 / n
+
+
+def phase_kernel_gconv(cfg) -> dict:
+    """The graph-convolution epilogue at the GCN's width against its plain
+    statement, at the rows a denoiser call has in bulk (64 images x
+    cond/uncond = 128) and in the mesh-guided cell (16 x 5 x 2 = 160):
+    BatchNorm and ReLU, with the residual add, and those stages off. Bar:
+    one bf16 ulp at the larger of each output's magnitude and 1/256 of the
+    largest. Then its device time a call against the plain glue's
+    (`modulated_gconv_mix`, `_bn_relu`, the residual add) and its bound by
+    bytes (h0, h1 and the residual read, the output written)."""
+    from egohmr_tpu_torch.models.egohmr import _adjacency
+    from egohmr_tpu_torch.nn import cast_params_bf16
+    from egohmr_tpu_torch.nn import gconv_epilogue as ge
+    from egohmr_tpu_torch.nn.gcn import GraphConv, ModulatedGraphConv, _bn_relu
+    from egohmr_tpu_torch.nn.gcn import modulated_gconv_mix
+
+    D, dev = cfg.gcn_hid_dim, torch.device("cuda")
+    adj = _adjacency(dev)
+    g = torch.Generator().manual_seed(4)
+
+    def drawn(bn):
+        p = GraphConv(D, D) if bn else ModulatedGraphConv(D, D)
+        with torch.no_grad():
+            for name, t in p.named_parameters():
+                t.copy_(torch.randn(t.shape, generator=g) * (D ** -0.5 if name.endswith("W")
+                                                             else 0.5))
+            if bn:
+                p.bn.weight.copy_(1 + 0.1 * torch.randn(D, generator=g))
+                p.bn.bias.copy_(0.1 * torch.randn(D, generator=g))
+                p.bn.running_mean.copy_(0.3 * torch.randn(D, generator=g))
+                p.bn.running_var.copy_(1 + torch.rand(D, generator=g))
+        return cast_params_bf16(p).eval().to(dev)
+
+    p, po = drawn(True), drawn(False)
+    res = {}
+    with torch.no_grad():
+        for N in (128, 160):
+            x = torch.randn(N, 24, D, generator=g).to(dev, torch.bfloat16)
+            resid = torch.relu(torch.randn(N, 24, D, generator=g)).to(dev, torch.bfloat16)
+            for stage, gc, bn, r in (("bn_relu", p.gconv, p.bn, None),
+                                     ("residual", p.gconv, p.bn, resid),
+                                     ("output", po, None, None)):
+                c = ge.build_constants(gc, adj, bn)
+                h0, h1 = x @ gc.W[0], x @ gc.W[1]
+                got = ge.gconv_epilogue(c, h0, h1, r).float()
+                torch.cuda.synchronize()
+                ref = ge.gconv_epilogue_reference(c, h0, h1, r).float()
+                mag = torch.maximum(ref.abs(), ref.abs().max() / 256)
+                ulps = ((got - ref).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)).max()
+                differ = int((got != ref).sum())
+                log("kernel", f"gconv epilogue vs plain at N={N}, D={D}, {stage}: "
+                              f"{differ} of {got.numel()} outputs differ, at most "
+                              f"{ulps.item():.2f} ulp (bar 1)")
+                if not (ulps <= 1 and torch.isfinite(got).all()):
+                    fail(f"the graph-convolution epilogue disagrees with its plain version at "
+                         f"N={N}, {stage}")
+            c = ge.build_constants(p.gconv, adj, p.bn)
+            h0, h1 = x @ p.gconv.W[0], x @ p.gconv.W[1]
+            ms = device_ms(lambda: ge.gconv_epilogue(c, h0, h1, resid))
+            plain_ms = device_ms(lambda: resid + _bn_relu(
+                p.bn, modulated_gconv_mix(p.gconv, adj, h0, h1), False))
+            products_ms = device_ms(lambda: (x @ p.gconv.W[0], x @ p.gconv.W[1]))
+            b = bound(2.0 * N * 24 * D * 24, PEAK_F32, 4 * N * 24 * D * 2)
+            res[N] = {"ms": ms, "plain_ms": plain_ms, "products_ms": products_ms, **b}
+            log("kernel", f"gconv epilogue at N={N}, D={D}, with the residual, device ms a call "
+                          f"(profiler): kernel {ms:.4f}, plain glue {plain_ms:.4f}, the two "
+                          f"weight products {products_ms:.4f}; bound {b['bound_ms']:.4f} ms by "
+                          f"{b['bound_by']}: {b['bound_ms'] / ms * 100:.1f}% of it")
+    return {"name": "gconv_epilogue", "route": "cuda",
+            "source": "egohmr_tpu_torch/csrc/gconv_epilogue.cu", "replaces": None,
+            "ms": res[128]["ms"], "plain_ms": res[128]["plain_ms"],
+            "bound_ms": res[128]["bound_ms"], "bound_by": res[128]["bound_by"],
+            "library_ms": None, "rows_160": res[160]}
 
 
 def k1_agrees(got, ref):
@@ -718,6 +842,7 @@ def phase_serve(cfg) -> int:
                 fail(f"{k}: shape {out[k].shape} (want {shape}) or non-finite values")
 
     k1.launches = k2.launches = 0  # main path starts: count launches from here
+    gconv_starts()
     results = []
     for name, batch in (("full request", full), ("short request", short)):
         before = k1.launches
@@ -745,11 +870,12 @@ def phase_serve(cfg) -> int:
     # a replayed request's launches by the replay accounting against the
     # device's kernels
     out, _ = profiled_launches(lambda: pred(full, seed=2), "serve: a replayed request",
-                               want={"k1": 1, "k2": 0})
+                               want={"k1": 1, "k2": 0, "gconv": GCONV_PER_CALL * 5})
     check(out, B)
-    log("serve", "a replayed request under the profiler: K1 1 launch by the replay accounting "
-                 "and by the device's kernels")
+    log("serve", f"a replayed request under the profiler: K1 1 launch, {GCONV_PER_CALL * 5} "
+                 "fused graph convolutions by the replay accounting and by the device's kernels")
     launches = k1.launches  # main path ends
+    gconv_ends("serve")
     if k2.launches != 0:
         fail(f"the unguided path launched K2 {k2.launches} times")
 
@@ -915,6 +1041,7 @@ def phase_guided(cfg) -> dict:
     torch.cuda.synchronize()
 
     k1.launches = k2.launches = 0  # main path starts: count launches from here
+    gconv_starts()
     for i, (sampler, schedule, B, n_guided, sizes) in enumerate(runs):
         pred, batch, free = served[i]
         for n in sizes:
@@ -938,11 +1065,13 @@ def phase_guided(cfg) -> dict:
         # device's kernels
         out, _ = profiled_launches(lambda: pred(batch, seed=2),
                                    f"guided {sampler}: a replayed request",
-                                   want={"k1": 1, "k2": n_guided})
+                                   want={"k1": 1, "k2": n_guided,
+                                         "gconv": GCONV_PER_CALL * schedule.num_timesteps})
         check(out, B)
         log("guided", f"{sampler}: a replayed request under the profiler: K1 1, K2 {n_guided} "
                       "launches by the replay accounting and by the device's kernels")
     counts = {"k1": k1.launches, "k2": k2.launches}  # main path ends
+    gconv_ends("guided")
 
     # Guidance acted. With random weights the denoiser's x0 barely follows
     # x_t, so of the guided steps' shifts only the last one lands on the
@@ -1167,8 +1296,10 @@ def phase_eval(cfg) -> dict:
     counts = {"k1": 0, "k2": 0}
     for name, (extra, guided_steps) in EVAL_RUNS.items():
         k1.launches = k2.launches = 0  # main path starts: count launches from here
+        gconv_starts()
         summary, secs = run(extra)
         d1, d2 = k1.launches, k2.launches  # main path ends
+        gconv_ends("eval")
         want2 = n_batches * (2 + guided_steps)
         log("eval", f"{name}, bf16 + K1, {B} images x {S} samples x {n_batches} batches: "
                     f"{secs:.2f} s for the whole CLI run (model set-up included); K1 launches "
@@ -1486,11 +1617,13 @@ def phase_train(cfg) -> dict:
                 "--save_step", "1000", "--data_parallel", "false", "--start_coap_step", "2",
                 "--save_dir", save_dir]
         k1.launches = k2.launches = 0  # main path starts: count launches from here
+        gconv_starts()
         t = time.perf_counter()
         train_egohmr.main(args + ["--num_steps", "2"])
         train_egohmr.main(args + ["--num_steps", "4"])
         secs = time.perf_counter() - t
         counts = {"k1": k1.launches, "k2": k2.launches}  # main path ends
+        gconv_ends("train")
         with open(f"{save_dir}/metrics.jsonl") as f:
             steps = [json.loads(line)["step"] for line in f]
     log("train", f"the CLI, --synthetic, 2 steps then resumed to 4: {secs:.1f} s (model set-up "
@@ -1971,6 +2104,11 @@ def phase_learned_query() -> dict:
 
 # (sampler, respacing, batch, guided steps per request)
 LEARNED_GUIDED_RUNS = (("ddim", "ddim5", 64, 4), ("ddpm", "", 16, 11))
+# the scenes (`synthetic_batch` seeds) on which learned guidance must act; the
+# first also serves the timed request. Of one scene's 64 bodies the count that
+# collides less moves by some 3 from seed to seed (47-57 on seeds 20-24), so
+# the bar holds the bodies of all five together.
+LEARNED_SCENE_SEEDS = (20, 21, 22, 23, 24)
 
 
 # guidance weights for the check that the learned guidance lowers
@@ -1989,7 +2127,9 @@ def phase_learned_guided(cfg) -> dict:
     192-wide net on the body it was distilled on; request latency, the
     guided step's time, launches (K1 once, K2 never) and peak memory; then
     guidance acts, on scenes with 1024 points inside the unguided bodies'
-    legs, at raised weights."""
+    legs, at raised weights: over the bodies of `LEARNED_SCENE_SEEDS`'
+    scenes together, the loss falls by over 1% and at least 80% of them
+    collide less."""
     from egohmr_tpu_torch.collision import knn as k2
     from egohmr_tpu_torch.collision import topk_scene_points
     from egohmr_tpu_torch.collision.neural_occupancy import NUM_PARTS, make_occupancy_guidance_fn
@@ -2044,10 +2184,12 @@ def phase_learned_guided(cfg) -> dict:
         owner = smpl.lbs_weights.argmax(1)
         leg = torch.nonzero(torch.isin(owner, torch.tensor(LEG_JOINTS, device=dev)))[:, 0]
         one_hot = torch.nn.functional.one_hot(owner, 24).float()  # [V, 24]
-        for sampler, schedule, B, n_guided in runs:
-            batch = to_torch(synthetic_batch(B, num_scene_points=P_FULL, seed=20), dev)
+
+        def scene(sampler, schedule, B, seed):
+            """The batch of `seed`, with 1024 scene points inside the legs of
+            its unguided bodies."""
+            batch = to_torch(synthetic_batch(B, num_scene_points=P_FULL, seed=seed), dev)
             free = sample(net, smpl, backend, sampler, schedule, batch, False)
-            # 1024 scene points inside the unguided bodies' legs
             v = free["pred_vertices"][:, 0]
             centres = (one_hot.t() @ v) / one_hot.sum(0)[:, None]  # [B, 24, 3]
             front = (v[:, leg, 0] > centres[:, owner[leg], 0]).float()  # [B, L]
@@ -2056,18 +2198,23 @@ def phase_learned_guided(cfg) -> dict:
             u = 0.9 * torch.rand(B, 1024, 1, generator=g, device=dev)
             vp = torch.gather(v, 1, pick[..., None].expand(-1, -1, 3))
             cp = torch.gather(centres, 1, owner[pick][..., None].expand(-1, -1, 3))
-            scene = batch["scene_pcd_verts_full"].clone()
-            scene[:, :1024] = cp + u * (vp - cp) + batch["smpl_params"]["transl"][:, None]
-            batch = {**batch, "scene_pcd_verts_full": scene}
+            points = batch["scene_pcd_verts_full"].clone()
+            points[:, :1024] = cp + u * (vp - cp) + batch["smpl_params"]["transl"][:, None]
+            return {**batch, "scene_pcd_verts_full": points}
+
+        for sampler, schedule, B, n_guided in runs:
+            batch = scene(sampler, schedule, B, LEARNED_SCENE_SEEDS[0])
             sample(net, smpl, backend, sampler, schedule, batch, True)  # warm-up
             torch.cuda.synchronize()
             k1.launches = k2.launches = 0  # main path starts: count launches from here
+            gconv_starts()
             torch.cuda.reset_peak_memory_stats()
             t = time.perf_counter()
             out = sample(net, smpl, backend, sampler, schedule, batch, True)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t) * 1e3
             d1, d2 = k1.launches, k2.launches  # main path ends
+            gconv_ends("learned")
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
             counts["k1"] += d1
             counts["k2"] += d2
@@ -2098,18 +2245,29 @@ def phase_learned_guided(cfg) -> dict:
             timed[f"{backend}_{sampler}"] = {"request_ms": ms, "guided_step_ms": step_ms,
                                              "peak_gib": peak}
             # guidance acts: at raised weights the served bodies collide less
-            free = sample(net, smpl, backend, sampler, schedule, batch, False)
-            got = sample(net, smpl, backend, sampler, schedule, batch, True,
-                         guidance=GuidanceConfig(**raised(backend, sampler, B)))
-            lf, lg = losses(net, free, batch), losses(net, got, batch)
-            moved = (got["pred_vertices"] - free["pred_vertices"]).abs().max().item()
-            better, drop = int((lg < lf).sum()), 1.0 - lg.mean() / max(lf.mean(), 1e-30)
             weights = raised(backend, sampler, B)
-            log("learned", f"(c) {backend}, {sampler}, raised weights {weights}: "
-                           f"vertices moved by up to {moved:.3e} m; learned collision loss "
-                           f"guided {lg.mean():.6e}, unguided {lf.mean():.6e} (least unguided "
-                           f"{lf.min():.3e}): down {drop * 100:.2f}% (bar 1%), {better} of {B} "
-                           f"bodies collide less (bar {0.8 * B:.0f})")
+            lf, lg, moved, per_scene = [], [], 0.0, []
+            for seed in LEARNED_SCENE_SEEDS:
+                if seed != LEARNED_SCENE_SEEDS[0]:
+                    batch = scene(sampler, schedule, B, seed)
+                free = sample(net, smpl, backend, sampler, schedule, batch, False)
+                got = sample(net, smpl, backend, sampler, schedule, batch, True,
+                             guidance=GuidanceConfig(**weights))
+                lf.append(losses(net, free, batch))
+                lg.append(losses(net, got, batch))
+                gap = (got["pred_vertices"] - free["pred_vertices"]).abs().max().item()
+                moved = max(moved, gap)
+                per_scene.append(int((lg[-1] < lf[-1]).sum()))
+                del free, got
+            lf, lg = np.concatenate(lf), np.concatenate(lg)
+            n = lf.size
+            better, drop = int((lg < lf).sum()), 1.0 - lg.mean() / max(lf.mean(), 1e-30)
+            log("learned", f"(c) {backend}, {sampler}, raised weights {weights}, scenes "
+                           f"{list(LEARNED_SCENE_SEEDS)}: vertices moved by up to {moved:.3e} m; "
+                           f"learned collision loss guided {lg.mean():.6e}, unguided "
+                           f"{lf.mean():.6e} (least unguided {lf.min():.3e}): down "
+                           f"{drop * 100:.2f}% (bar 1%), {better} of {n} bodies collide less "
+                           f"(bar {0.8 * n:.0f}; by scene {per_scene} of {B})")
             if backend == "volsdf" and sampler == "ddim":
                 # The last DDIM step adds to the denoiser's x0 a gradient taken
                 # at x_t's pose; the random denoiser's x0 is another pose, and
@@ -2119,7 +2277,7 @@ def phase_learned_guided(cfg) -> dict:
                 # pulls there; the learned SDF is held to the bar in DDPM.
                 if not moved > 0:
                     fail(f"learned-guided {backend} {sampler}: the guidance changed nothing")
-            elif not (drop > 0.01 and better >= 0.8 * B):
+            elif not (drop > 0.01 and better >= 0.8 * n):
                 fail(f"learned-guided {backend} {sampler}: the guided bodies do not collide "
                      "less than the unguided ones")
     counts["timed"] = timed
@@ -2155,11 +2313,13 @@ def phase_learned_eval() -> dict:
         if extra:
             extra = extra + [artifact("occupancy_synthetic.npz")]
         k1.launches = k2.launches = 0  # main path starts: count launches from here
+        gconv_starts()
         t = time.perf_counter()
         summary = mods[mod].main(EVAL_ARGS + extra)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t
         d1, d2 = k1.launches, k2.launches  # main path ends
+        gconv_ends("learned")
         counts["k1"] += d1
         counts["k2"] += d2
         f32 = mods[mod].main(EVAL_ARGS + extra + F32_PLAIN)
@@ -2814,11 +2974,13 @@ def dp_rank_eval(dp, tmp) -> dict:
     for name, extra in DP_EVAL_RUNS.items():
         with kernel_calls() as seen:
             k1.launches = k2.launches = 0  # main path starts: count launches from here
+            gconv_starts()
             t = time.perf_counter()
             res[f"eval {name}"] = cli.main(EVAL_ARGS + extra)
             torch.cuda.synchronize()
             res[f"eval {name} s"] = time.perf_counter() - t
             res[f"eval {name} k1"], res[f"eval {name} k2"] = k1.launches, k2.launches  # ends
+            res[f"eval {name} gconv"] = gconv_ends("parallel")
         if (len(seen["k1"]), len(seen["k2"])) != (k1.launches, k2.launches):
             fail(f"(c) eval {name} on rank {dp.rank}: {len(seen['k1'])} K1 and "
                  f"{len(seen['k2'])} K2 calls recorded for {k1.launches} and {k2.launches} "
@@ -2910,6 +3072,7 @@ def dp_predictor(cfg) -> dict:
             with kernel_calls() as seen:
                 eager = pred.eager(batch, seed=1)
             k1.launches = 0  # main path starts: count launches from here
+            gconv_starts()
             # one replayed request under the profiler: the replay accounting
             # against the device's kernels and the eager request's calls
             profiled_launches(lambda: pred(batch, seed=1), f"(d) {name}, {tag}",
@@ -2921,6 +3084,7 @@ def dp_predictor(cfg) -> dict:
                 outs[tag] = pred(batch, seed=1)
                 times.append((time.perf_counter() - t0) * 1e3)
             launched = k1.launches  # main path ends
+            gconv_ends("parallel")
             if 4 * len(seen["k1"]) != launched or seen["k2"]:
                 fail(f"(d) {name}, {tag}: {len(seen['k1'])} K1 calls recorded in an eager "
                      f"request for {launched} launches in 4 replayed ones, "
@@ -2988,12 +3152,14 @@ def phase_parallel(cfg) -> dict:
         for name, extra in DP_EVAL_RUNS.items():
             with kernel_calls() as seen:
                 k1.launches = k2.launches = 0  # main path starts: count launches from here
+                gconv_starts()
                 t = time.perf_counter()
                 one[name] = cli.main(EVAL_ARGS + extra)
                 torch.cuda.synchronize()
                 one[f"{name} s"] = time.perf_counter() - t
                 counts["k1"] += k1.launches  # main path ends
                 counts["k2"] += k2.launches
+                gconv_ends("parallel")
             log("parallel", hold_kernel_calls(seen, f"(c) eval {name}, 1-way"))
             del seen
     finally:
@@ -3033,6 +3199,7 @@ def phase_parallel(cfg) -> dict:
             d1, d2 = r[f"eval {name} k1"], r[f"eval {name} k2"]
             counts["k1"] += d1
             counts["k2"] += d2
+            GCONV["parallel"] = GCONV.get("parallel", 0) + r[f"eval {name} gconv"]
             if d1 != want_k1 or d2 != 2 * (2 + guided):
                 fail(f"(c) eval {name} on rank {r['rank']}: K1 {d1} launches (want {want_k1}), "
                      f"K2 {d2} (want {2 * (2 + guided)}: 2 per batch and {guided} guided steps "
@@ -3184,8 +3351,10 @@ def phase_tp(cfg, dev=None) -> dict:
             fail(f"{name}: {w} is not cut into {TP_TP} shards on the grid: {shapes}")
         with kernel_calls() as seen:
             k1.launches = k2.launches = 0  # main path starts: count launches from here
+            gconv_starts()
             grid_out, grid_host, grid_event = serve(pred)
             d1, d2 = k1.launches, k2.launches  # main path ends
+            gconv_ends("tp")
         n_req = TP_REQUESTS + 1
         if d1 or len(seen["k1"]) or d2 != want_k2 * n_req or len(seen["k2"]) != d2:
             fail(f"{name}: on the grid K1 launched {d1} times (want 0), K2 {d2} (want "
@@ -3315,9 +3484,11 @@ def phase_bench() -> dict:
         out = io.StringIO()
         t0 = time.perf_counter()
         k1.launches = k2.launches = 0  # this run's main path starts
+        gconv_starts()
         with contextlib.redirect_stdout(out):
             rc = entry.main(argv + ["--iters", str(BENCH_ITERS)], request_hook=hold)
         launches = {"k1": k1.launches, "k2": k2.launches}  # and ends
+        gconv_ends("bench")
         lines = [line for line in out.getvalue().splitlines() if line.startswith("{")]
         if rc != 0 or len(lines) != 1:
             fail(f"bench {name}: exit {rc}, {len(lines)} JSON lines: {out.getvalue()[-2000:]}")
@@ -3454,6 +3625,7 @@ def run_tool(name: str, argv, counts: dict, held: list):
     t0 = time.perf_counter()
     with kernel_calls() as seen:
         k1.launches = k2.launches = 0  # this tool's main path starts
+        gconv_starts()
         try:
             with contextlib.redirect_stdout(out):
                 ret = entry.main(argv)
@@ -3462,6 +3634,7 @@ def run_tool(name: str, argv, counts: dict, held: list):
             raise
         torch.cuda.synchronize()
         launches = {"k1": k1.launches, "k2": k2.launches}  # and ends
+        gconv_ends("tools")
     secs = time.perf_counter() - t0
     for k in ("k1", "k2"):
         if len(seen[k]) != launches[k]:
@@ -3607,7 +3780,7 @@ def phase_tools() -> dict:
         _, printed, secs = run_tool("probe_gcn", [], counts, held)
         d = last_json(printed)
         log("tools", f"probe_gcn: {json.dumps(d)}")
-        if set(d["results"]) != {"full", "skeleton", "wcat", "wcat_skel"} or \
+        if set(d["results"]) != {"full", "fused", "skeleton", "wcat", "wcat_skel"} or \
                 any(v is None for v in d["kernel_ms"].values()):
             fail(f"probe_gcn: {d}")
         res["probe_gcn"] = {"s": secs, **{k: d[k] for k in (
@@ -3787,10 +3960,13 @@ def phase_graphs(cfg, smi: str) -> dict:
             fail(f"{name}: the one-device Predictor on the card is not captured")
         pred.warmup(batch)
         k1.launches = k2.launches = 0  # main path starts: count launches from here
+        gconv_starts()
         # under the profiler: the replay accounting against the device's kernels
         got, _ = profiled_launches(lambda: [pred(batch, seed=s) for s in GRAPH_SEEDS], name,
-                                   want={"k1": len(GRAPH_SEEDS), "k2": 0})
+                                   want={"k1": len(GRAPH_SEEDS), "k2": 0,
+                                         "gconv": GCONV_PER_CALL * 5 * len(GRAPH_SEEDS) * bf16})
         d1, d2 = k1.launches, k2.launches  # main path ends
+        gconv_ends("graphs")
         res["k1"] += d1
         gaps = [max_gap(g, pred.eager(batch, seed=s)) for g, s in zip(got, GRAPH_SEEDS)]
         pred.warmup(other)  # a second shape, a second program
@@ -3827,10 +4003,13 @@ def phase_graphs(cfg, smi: str) -> dict:
         eager_gap = max_gap(e1, e2)
         pred.warmup(scene)
         k1.launches = k2.launches = 0  # main path starts: count launches from here
+        gconv_starts()
         # under the profiler: the replay accounting against the device's kernels
         got, _ = profiled_launches(lambda: pred(scene, seed=1), name,
-                                   want={"k1": 1, "k2": n_guided})
+                                   want={"k1": 1, "k2": n_guided,
+                                         "gconv": GCONV_PER_CALL * schedule.num_timesteps})
         d1, d2 = k1.launches, k2.launches  # main path ends
+        gconv_ends("graphs")
         res["k1"] += d1
         res["k2"] += d2
         gap = max_gap(got, e1)
@@ -3875,11 +4054,12 @@ def phase_served_volsdf(cfg, smi: str) -> dict:
     B, S = VOLSDF_REQUEST["B"], VOLSDF_REQUEST["S"]
     gcfg = GuidanceConfig(cond_grad_weight=VOLSDF_REQUEST["weight"])
     steps = gcfg.ddpm_threshold + 1
+    schedule = make_schedule(50, "cosine", "")
     batch = numpy_batch(synthetic_batch(B, num_scene_points=P_FULL, seed=30))
 
     def predictor(**kw):
         return Predictor(model, cfg, body, BodyRepStats(torch.zeros(144), torch.ones(144)),
-                         make_schedule(50, "cosine", ""), device=dev, batch_size=B,
+                         schedule, device=dev, batch_size=B,
                          num_samples=S, sampler="ddpm", pointnet_impl="fused",
                          with_guidance=True, guidance=gcfg, collision_backend="volsdf",
                          collision_net=net, guidance_scene_points=None, **kw)
@@ -3893,10 +4073,12 @@ def phase_served_volsdf(cfg, smi: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     before = (pred.guided_steps, pred.field_rows)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    gconv_starts()  # main path starts
     start.record()
     got = pred(batch, seed=1)
     end.record()
     torch.cuda.synchronize()
+    fused = gconv_ends("volsdf")  # main path ends
     ms, peak = start.elapsed_time(end), torch.cuda.max_memory_allocated()
     counted = (pred.guided_steps - before[0], pred.field_rows - before[1])
     want_rows = steps * B * S * 24 * P_FULL
@@ -3914,8 +4096,10 @@ def phase_served_volsdf(cfg, smi: str) -> dict:
                   f"|g| max {grad.max():.3e}")
     if gap > bar:
         fail("volsdf (a): the replayed request strays from the eager one")
-    if counted != (steps, want_rows):
-        fail(f"volsdf (a): counters {counted}, want {(steps, want_rows)}")
+    want_fused = GCONV_PER_CALL * schedule.num_timesteps
+    if counted != (steps, want_rows) or fused != want_fused:
+        fail(f"volsdf (a): counters {counted} and {fused} fused graph convolutions, want "
+             f"{(steps, want_rows)} and {want_fused}")
     if rec.shape[2] != steps or not np.all(np.isfinite(rec)) or grad.max() == 0:
         fail(f"volsdf (a): the record holds {rec.shape[2]} steps (want {steps}), or a "
              "non-finite value, or no gradient")
@@ -3973,7 +4157,7 @@ def main() -> None:
 
     timed("build", phase_build)
     kernels = timed("kernel", lambda: [phase_kernel_k1(cfg), phase_kernel_k2(),
-                                       phase_kernel_k3()])
+                                       phase_kernel_k3(), phase_kernel_gconv(cfg)])
     unguided = timed("serve", phase_serve, cfg)
     guided = timed("guided", phase_guided, cfg)
     evaluated = timed("eval", phase_eval, cfg)
@@ -4015,6 +4199,9 @@ def main() -> None:
                       eval_shapes={k: evaluated[k] for k in
                                    ("k2_metric_ms", "k2_cloud_ms", "k2_bound_ms", "eval_ms")},
                       train_shape=trained["k2_train_shape"])
+    kernels[3].update(launches=sum(GCONV.values()),
+                      **{f"launches_{phase}": n for phase, n in GCONV.items()},
+                      launches_profiled=PROFILED["gconv"])
     for k in kernels:
         if k["launches"] < 1:
             fail(f"{k['name']} was never launched on a main path")

@@ -19,7 +19,7 @@ the gradients land in f32 on the f32 master weights.
 from __future__ import annotations
 
 import copy
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -52,12 +52,20 @@ def batchnorm_eval(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
     """Eval BatchNorm with running statistics; channels on `channel_dim`."""
     shape = [1] * x.ndim
     shape[channel_dim] = -1
+    if x.dtype != torch.promote_types(bn.running_var.dtype, bn.weight.dtype):
+        inv, shift = batchnorm_eval_fold(bn, x.dtype)
+        return x * inv.view(shape) + shift.view(shape)
     inv = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
-    if x.dtype != inv.dtype:
-        shift = bn.bias - bn.running_mean * inv
-        return x * inv.to(x.dtype).view(shape) + shift.to(x.dtype).view(shape)
     return ((x - bn.running_mean.view(shape)) * inv.view(shape)
             + bn.bias.view(shape))
+
+
+def batchnorm_eval_fold(bn: nn.modules.batchnorm._BatchNorm,
+                        dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eval BatchNorm on activations of a lower precision than its f32
+    statistics, as one per-channel (scale, shift) cast to `dtype`."""
+    inv = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
+    return inv.to(dtype), (bn.bias - bn.running_mean * inv).to(dtype)
 
 
 def batchnorm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,

@@ -13,6 +13,11 @@ its BatchNorm2d.
 
 `modulated_gcn_forward_tp` is the same network split over a data row's
 model axis (`parallel/tp.py`), for inference.
+
+On the card, in bf16 inference, each BatchNorm'd graph convolution of
+`modulated_gcn_forward` runs what follows its two weight products (the
+modulation, the adjacency mix, the bias, BatchNorm, ReLU and the residual
+add) as one kernel (`nn/gconv_epilogue.py`); see `_fused`.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from torch import nn
 
 from ..parallel.mesh import DataParallel
 from ..parallel.tp import TensorParallel
+from . import gconv_epilogue as epilogue
 from .core import batchnorm, mm
 
 
@@ -100,9 +106,45 @@ def _bn_relu(bn: nn.BatchNorm1d, x: torch.Tensor, train: bool,
     return torch.relu(batchnorm(bn, x, channel_dim=-1, train=train, dp=dp))
 
 
+def _fused(p: GraphConv, train: bool, *acts: torch.Tensor) -> bool:
+    """Whether the graph convolution `p` on the activations `acts` takes the
+    fused epilogue: on the card, where `_kernel_arithmetic_holds`."""
+    return all(a.is_cuda for a in acts) and _kernel_arithmetic_holds(p, train, *acts)
+
+
+def _kernel_arithmetic_holds(p: GraphConv, train: bool, *acts: torch.Tensor) -> bool:
+    """Whether the kernel computes what the caller asks for: bf16
+    activations and weights, channels the kernel's width divides, BatchNorm
+    on its running statistics, and nothing for autograd to record. The
+    kernel's f32 arithmetic with one rounding then stands in for the plain
+    path's rounding after every op, as XLA's fusions do on the JAX side."""
+    gc = p.gconv
+    bf = torch.bfloat16
+    return (not train
+            and all(a.dtype == bf for a in acts)
+            and gc.M.dtype == gc.bias.dtype == gc.adj2.dtype == bf
+            and gc.M.shape[-1] % epilogue.VEC == 0
+            and not (torch.is_grad_enabled()
+                     and any(t.requires_grad for t in (*acts, *p.parameters()))))
+
+
+def _graph_conv_mix(p: GraphConv, adj: torch.Tensor, h0: torch.Tensor, h1: torch.Tensor,
+                    train: bool, dp: Optional[DataParallel],
+                    residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """relu(BN(gconv mix of h0 = x @ W[0], h1 = x @ W[1])) (+ residual)."""
+    if _fused(p, train, h0, h1):
+        c = epilogue.epilogue_constants(p.gconv, adj, p.bn)
+        return epilogue.gconv_epilogue(c, h0, h1, residual)
+    out = _bn_relu(p.bn, modulated_gconv_mix(p.gconv, adj, h0, h1), train, dp)
+    return out if residual is None else residual + out
+
+
 def graph_conv(p: GraphConv, adj: torch.Tensor, x: torch.Tensor,
-               train: bool = False, dp: Optional[DataParallel] = None) -> torch.Tensor:
-    return _bn_relu(p.bn, modulated_gconv(p.gconv, adj, x), train, dp)
+               train: bool = False, dp: Optional[DataParallel] = None,
+               residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """relu(BN(gconv(x))) (+ residual)."""
+    W = p.gconv.W
+    return _graph_conv_mix(p, adj, x @ W[0], x @ W[1], train, dp, residual)
 
 
 def _conv1x1(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
@@ -141,14 +183,12 @@ def modulated_gcn_forward(
     ignored when given."""
     gi = model.gconv_input[0]
     if input_h is not None:
-        out = _bn_relu(gi.bn, modulated_gconv_mix(gi.gconv, adj, *input_h), train, dp)
+        out = _graph_conv_mix(gi, adj, *input_h, train, dp)
     else:
         out = graph_conv(gi, adj, x, train, dp)
     for blk in model.gconv_layers:
-        residual = out
-        out = graph_conv(blk.gconv1, adj, out, train, dp)
-        out = graph_conv(blk.gconv2, adj, out, train, dp)
-        out = residual + out
+        h = graph_conv(blk.gconv1, adj, out, train, dp)
+        out = graph_conv(blk.gconv2, adj, h, train, dp, residual=out)
     if model.non_local is not None:
         out = nonlocal_block(model.non_local, out, train=train, dp=dp)
     return modulated_gconv(model.gconv_output, adj, out)

@@ -9,8 +9,13 @@ One call of the denoiser, `EgoHMRConfig()`'s GCN (4 residual blocks at
 H=1024 over 24 joints) in bf16, at the fuse-doubled batch (64 images x
 cond/uncond = 128), with the input layer's projections given:
 
-  full       `nn/gcn.py:modulated_gcn_forward(input_h=)`, the program of a
-             sampling step;
+  full       `nn/gcn.py:modulated_gcn_forward(input_h=)`'s plain path:
+             each graph convolution's modulation, adjacency mix, bias,
+             BatchNorm, ReLU and residual add as separate PyTorch ops;
+  fused      `modulated_gcn_forward(input_h=)` as a sampling step runs it:
+             on the card in bf16 each BatchNorm'd graph convolution's glue
+             is one kernel (`nn/gconv_epilogue.py`); elsewhere the plain
+             path;
   skeleton   the same hidden [B*24, H] x [H, H] products and ReLUs alone, no
              adjacency mix, modulation or BatchNorm: not the same function,
              a floor (full - skeleton = the price of the glue);
@@ -19,8 +24,9 @@ cond/uncond = 128), with the input layer's projections given:
              concatenated [H, 2H] weight, through `modulated_gconv_mix`;
   wcat_skel  the concatenated-weight skeleton, the floor for `wcat`.
 
-The parity gate: `wcat` equals `full` at rtol/atol 2e-2 (the [H, 2H]
-product may round bf16 differently).
+The parity gate: `wcat` and `fused` equal `full` at rtol/atol 2e-2 (the
+[H, 2H] product may round bf16 differently; the kernel rounds once where
+the plain path rounds after every op).
 
 Times: chains of calls with a data dependence (each call's inputs shifted by
 1e-12 x the sum of the last output), a synchronize at the end of a chain,
@@ -77,7 +83,30 @@ def variants(gcn, adj):
     wcat = {id(gc): torch.cat([gc.W[0], gc.W[1]], dim=-1)
             for gc in [g.gconv for pair in layers for g in pair] + [gcn.gconv_output]}
 
-    def full(a, b):
+    def two_products(gc, x):
+        return x @ gc.W[0], x @ gc.W[1]
+
+    def one_product(gc, x):
+        h = x @ wcat[id(gc)]
+        d = gc.W.shape[-1]
+        return h[..., :d], h[..., d:]
+
+    def plain(products):
+        """The plain path, each graph convolution's (x @ W[0], x @ W[1])
+        issued by `products(gconv, x)`."""
+        def fn(a, b):
+            gi = gcn.gconv_input[0]
+            out = relu(batchnorm_eval(gi.bn, modulated_gconv_mix(gi.gconv, adj, a, b), -1))
+            for pair in layers:
+                res = out
+                for g in pair:
+                    mix = modulated_gconv_mix(g.gconv, adj, *products(g.gconv, out))
+                    out = relu(batchnorm_eval(g.bn, mix, -1))
+                out = res + out
+            return modulated_gconv_mix(gcn.gconv_output, adj, *products(gcn.gconv_output, out))
+        return fn
+
+    def fused(a, b):
         return modulated_gcn_forward(gcn, adj, None, input_h=(a, b))
 
     def skeleton(a, b):
@@ -92,22 +121,6 @@ def variants(gcn, adj):
         Wo = gcn.gconv_output.W
         return out @ Wo[0] + out @ Wo[1]
 
-    def gconv_wcat(gc, x):
-        h = x @ wcat[id(gc)]
-        d = gc.W.shape[-1]
-        return modulated_gconv_mix(gc, adj, h[..., :d], h[..., d:])
-
-    def wcat_full(a, b):
-        # `full`'s function; only the weight products are issued differently
-        gi = gcn.gconv_input[0]
-        out = relu(batchnorm_eval(gi.bn, modulated_gconv_mix(gi.gconv, adj, a, b), -1))
-        for pair in layers:
-            res = out
-            for g in pair:
-                out = relu(batchnorm_eval(g.bn, gconv_wcat(g.gconv, out), -1))
-            out = res + out
-        return gconv_wcat(gcn.gconv_output, out)
-
     def wcat_skel(a, b):
         out = relu(a + b)
         for pair in layers:
@@ -121,7 +134,8 @@ def variants(gcn, adj):
         d = h.shape[-1] // 2
         return h[..., :d] + h[..., d:]
 
-    return {"full": full, "skeleton": skeleton, "wcat": wcat_full, "wcat_skel": wcat_skel}
+    return {"full": plain(two_products), "fused": fused, "skeleton": skeleton,
+            "wcat": plain(one_product), "wcat_skel": wcat_skel}
 
 
 def profile_calls(fn, a, b, n: int, device: torch.device) -> dict:
@@ -155,11 +169,14 @@ def main(argv=None) -> int:
     h0, h1 = (torch.randn(B, J, H, generator=g).to(dev, torch.bfloat16) for _ in range(2))
     fns = variants(gcn, adj)
 
-    # the parity gate: wcat is full's function
-    o_full, o_wcat = (fns[k](h0, h1).float().cpu().numpy() for k in ("full", "wcat"))
-    md = float(np.abs(o_full - o_wcat).max())
-    np.testing.assert_allclose(o_wcat, o_full, rtol=2e-2, atol=2e-2)
-    print(f"# parity: wcat == full (max abs diff {md:.2e})", file=sys.stderr)
+    # the parity gate: wcat and fused are full's function
+    o_full = fns["full"](h0, h1).float().cpu().numpy()
+    diffs = {}
+    for k in ("wcat", "fused"):
+        o = fns[k](h0, h1).float().cpu().numpy()
+        diffs[k] = float(np.abs(o_full - o).max())
+        np.testing.assert_allclose(o, o_full, rtol=2e-2, atol=2e-2)
+        print(f"# parity: {k} == full (max abs diff {diffs[k]:.2e})", file=sys.stderr)
 
     def time_variant(name, fn):
         def chain(n):
@@ -207,7 +224,8 @@ def main(argv=None) -> int:
         "kernel_ms": {k: v["kernel_ms_per_call"] for k, v in profiled.items()},
         "launches_per_call": {k: v["launches_per_call"] for k, v in profiled.items()},
         "roofline_ms": flops / PEAK_BF16 * 1e3,
-        "parity_max_abs_diff": md,
+        "parity_max_abs_diff": diffs["wcat"],
+        "fused_max_abs_diff": diffs["fused"],
         "device": bench.device_name(dev),
     }))
     return 0

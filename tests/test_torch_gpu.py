@@ -1,5 +1,6 @@
-"""Kernels K1, K2 and K3 on the card, each held to its plain version (K2
-also at the distillation label shapes), the evaluation CLI, training steps
+"""Kernels K1, K2 and K3 and the graph-convolution epilogue on the card,
+each held to its plain version (K2 also at the distillation label shapes),
+the evaluation CLI, training steps
 and the shipped learned collision nets on the card against the CPU, and
 `Predictor`'s captured request programs and staged uploads against their
 eager runs. Needs a
@@ -12,6 +13,7 @@ import torch
 from egohmr_tpu_torch.collision import knn as k2
 from egohmr_tpu_torch.collision import nearest_vertex
 from egohmr_tpu_torch.models import init_random_
+from egohmr_tpu_torch.nn import gconv_epilogue as epilogue
 from egohmr_tpu_torch.nn import pointnet_fused as k1
 from egohmr_tpu_torch.nn.pointnet import ResnetPointnet
 
@@ -1026,3 +1028,125 @@ def test_captured_volsdf_request_equals_eager(cuda):
         bulk(big, seed=2)
         torch.cuda.synchronize()
     assert host_launches(prof)["total"] == 22
+
+
+def _random_gconv(D, bn, seed, device):
+    """A bf16 graph convolution [D -> D] (with BatchNorm or without, as the
+    output convolution) with every parameter and statistic drawn."""
+    from egohmr_tpu_torch.nn import cast_params_bf16
+    from egohmr_tpu_torch.nn.gcn import GraphConv, ModulatedGraphConv
+
+    p = GraphConv(D, D) if bn else ModulatedGraphConv(D, D)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, t in p.named_parameters():
+            t.copy_(torch.randn(t.shape, generator=g) * (D ** -0.5 if name.endswith("W") else 0.5))
+        if bn:
+            p.bn.weight.copy_(1 + 0.1 * torch.randn(D, generator=g))
+            p.bn.bias.copy_(0.1 * torch.randn(D, generator=g))
+            p.bn.running_mean.copy_(0.3 * torch.randn(D, generator=g))
+            p.bn.running_var.copy_(1 + torch.rand(D, generator=g))
+    return cast_params_bf16(p).eval().to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stage", ["bn_relu", "residual", "output", "strided"])
+@pytest.mark.parametrize("N", [128, 160])
+def test_gconv_epilogue_matches_plain_version(cuda, N, stage):
+    """The kernel against its plain statement at the bulk (128) and
+    mesh-guided (160) rows, D = 1024: BatchNorm and ReLU, with the residual
+    add, with those stages off (the output convolution's arithmetic), and
+    h0, h1 read through the strides of one [N, 24, 2D] product. Bar: one
+    bf16 ulp at the larger of each output's magnitude and 1/256 of the
+    largest (the f32 sums round in another order; where BatchNorm's shift
+    cancels the sum, that rounding is of the terms' size, not the
+    output's); every launch is counted."""
+    from egohmr_tpu_torch.models.egohmr import _adjacency
+
+    D = 1024
+    p = _random_gconv(D, stage != "output", seed=N, device=cuda)
+    gc = p if stage == "output" else p.gconv
+    g = torch.Generator().manual_seed(N + 1)
+    x = torch.randn(N, 24, D, generator=g).to(cuda, torch.bfloat16)
+    residual = (torch.relu(torch.randn(N, 24, D, generator=g)).to(cuda, torch.bfloat16)
+                if stage in ("residual", "strided") else None)
+    with torch.no_grad():
+        if stage == "strided":
+            h = x @ torch.cat([gc.W[0], gc.W[1]], dim=-1)
+            h0, h1 = h[..., :D], h[..., D:]
+        else:
+            h0, h1 = x @ gc.W[0], x @ gc.W[1]
+        c = epilogue.build_constants(gc, _adjacency(cuda), None if stage == "output" else p.bn)
+        before = epilogue.gconv_fused
+        got = epilogue.gconv_epilogue(c, h0, h1, residual)
+        torch.cuda.synchronize()
+        assert epilogue.gconv_fused == before + 1
+        ref = epilogue.gconv_epilogue_reference(c, h0, h1, residual).float()
+    assert got.shape == (N, 24, D) and got.dtype == torch.bfloat16
+    assert torch.isfinite(got.float()).all()
+    mag = torch.maximum(ref.abs(), ref.abs().max() / 256)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    assert ((got.float() - ref).abs() <= ulp).all()
+
+
+@pytest.mark.gpu
+def test_gconv_epilogue_rejects_what_it_does_not_take(cuda):
+    from egohmr_tpu_torch.models.egohmr import _adjacency
+
+    p = _random_gconv(64, True, seed=1, device=cuda)
+    c = epilogue.build_constants(p.gconv, _adjacency(cuda), p.bn)
+    h = torch.randn(2, 24, 64, device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="bf16"):
+        epilogue.gconv_epilogue(c, h.float(), h)
+    with pytest.raises(ValueError, match="unit channel stride"):
+        epilogue.gconv_epilogue(c, h.transpose(0, 1), h)
+    with pytest.raises(ValueError, match="residual"):
+        epilogue.gconv_epilogue(c, h, h, h[:1])
+    odd = c._replace(m=c.m[:, :63], vec=c.vec[:, :63])
+    with pytest.raises(ValueError, match="multiples of 2"):
+        epilogue.gconv_epilogue(odd, h[..., :63], h[..., :63])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("guided", [False, True], ids=["bulk-ddim5", "mesh-guided-ddpm50"])
+def test_replayed_request_fuses_every_graph_convolution(cuda, guided):
+    """The GCN at its full width (1024 x 4; the rest tiny): a replayed bulk
+    request (unguided DDIM-5) and a replayed mesh-guided request (DDPM-50,
+    guided on 11 steps) equal their eager runs bit for bit, and count 45
+    and 450 fused graph convolutions (9 a denoiser call: the input one and
+    two in each residual block), by the replay accounting and by the
+    profiler's count of the kernel in the graph."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from egohmr_tpu_torch.data import synthetic_batch
+    from egohmr_tpu_torch.diffusion import GuidanceConfig, make_schedule
+    from egohmr_tpu_torch.models import BodyRepStats, EgoHMR
+    from egohmr_tpu_torch.serving import MESH_OUTPUT_KEYS, Predictor
+    from egohmr_tpu_torch.smpl import make_synthetic_model
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, _ = _tiny_stage2(cuda, pointnet_hidden_dim=256, gcn_hid_dim=1024, gcn_layers=4)
+    model = init_random_(EgoHMR(cfg), seed=0).eval()
+    sampler, respacing, want = ("ddpm", "", 450) if guided else ("ddim", "ddim5", 45)
+    pred = Predictor(model, cfg, make_synthetic_model(num_vertices=512),
+                     BodyRepStats(torch.zeros(144), torch.ones(144)),
+                     make_schedule(50, "cosine", respacing), device=cuda, batch_size=4,
+                     num_samples=2, sampler=sampler, with_guidance=guided,
+                     guidance=GuidanceConfig(cond_grad_weight=60.0),
+                     output_keys=MESH_OUTPUT_KEYS)
+    batch = synthetic_batch(4, num_scene_points=2048, img_size=64, seed=2)
+    pred.warmup(batch)
+    before = epilogue.gconv_fused
+    torch.cuda.synchronize(cuda)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = pred(batch, seed=3)
+        torch.cuda.synchronize(cuda)
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and re.search(r"\bgconv_epilogue_kernel\b", e.key))
+    assert epilogue.gconv_fused - before == kernels == want
+    eager = pred.eager(batch, seed=3)
+    for k in eager:
+        assert (got[k] == eager[k]).all(), k

@@ -124,7 +124,7 @@ def test_probe_gcn_prints_one_json_line(capsys):
     assert len(lines) == 1
     d = json.loads(lines[0])
     assert d["metric"] == "gcn_denoiser_ms_per_call_by_variant" and d["batch_fused"] == 4
-    assert set(d["results"]) == {"full", "skeleton", "wcat", "wcat_skel"}
+    assert set(d["results"]) == {"full", "fused", "skeleton", "wcat", "wcat_skel"}
     assert d["device"] == "cpu" and d["kernel_ms"]["full"] is None
     # the card's bound at the tiny widths: 8 hidden products of [96, 64] x [64, 64]
     assert d["roofline_ms"] == pytest.approx(8 * 2 * 96 * 64 * 64 / 989e12 * 1e3)
