@@ -108,17 +108,15 @@ Phases (any failure exits non-zero):
                no latency claim
  12. bench   — the measurement entry points at full width, in process, at
                --iters 1 (chains of 3 and 9 requests): `python -m
-               egohmr_tpu_torch.bench` in its default mode (with the
-               reference-architecture baselines and the paper setting),
-               --guided-ddim, --guided, --serving and --train; one sweep
-               point of `tools/profile_serving.py`; the exact-r3 and fwd-r3
-               runs of `tools/probe_guided_backward.py`. Each prints one
-               JSON line with the JAX bench's metric name and a non-null
-               value; K1 launches in the default, serving and guided runs,
-               K2 in the guided, training and probe runs; before each
-               request program is timed, one untimed request of it runs
-               under the recorder and every K1 and K2 call of it is held to
-               its plain version; where the mode captures the program, a
+               egohmr_tpu_torch.bench` in its default mode (`sample_bodies`
+               unguided, and the paper setting), --guided-ddim, --guided,
+               --serving and --train; one sweep point of
+               `tools/profile_serving.py`. Each prints one JSON line with
+               the JAX bench's metric name and a non-null value; K1
+               launches in the default, serving and guided runs, K2 in the
+               guided and training runs; before each request program is
+               timed, one untimed request of it runs under the recorder and
+               every K1 and K2 call of it is held to its plain version; where the mode captures the program, a
                second eager run and one replay of the same request follow,
                the replay held to the eager run bit for bit (or within
                twice the two eager runs' gap) and its K1 and K2 launches to
@@ -1242,7 +1240,7 @@ def phase_eval(cfg) -> dict:
         kw = {"sampler": "ddim", **kw}
         return sample_bodies(model if bf16 else model32, fused if bf16 else plain, smpl, stats,
                              schedule, batch, torch.Generator(device=dev).manual_seed(0), S,
-                             bf16=bf16, params_precast=bf16, **kw)
+                             **kw)
 
     # the CLI's two batches: how many joints and vertices the *_invis keys
     # average over; K2 against its plain version on the very bodies and
@@ -2158,7 +2156,7 @@ def phase_learned_guided(cfg) -> dict:
         out, _ = sample_bodies(model, fused, smpl, stats, schedule, batch,
                                torch.Generator(device=dev).manual_seed(1), 1, sampler=sampler,
                                with_guidance=guided, collision_backend=backend, occ_net=net,
-                               bf16=True, params_precast=True, **kw)
+                               **kw)
         return out
 
     def losses(net, out, batch):
@@ -3428,8 +3426,6 @@ BENCH_RUNS = (
     ("profile_serving", "tools.profile_serving",
      ["--sweep", "4", "--stream", "9", "--reps", "1"], "serving_profile", "device_ms",
      ("k1",)),
-    ("probe_guided_backward", "tools.probe_guided_backward", [],
-     "guided_ddpm50_backward_decomposition", "backward_cost_ms_per_batch", ("k1", "k2")),
 )
 BENCH_ITERS = 1  # the shortest chains of the bench's method: 3 and 9 requests
 

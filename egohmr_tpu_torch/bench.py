@@ -1,20 +1,21 @@
-"""Benchmark of the port: stage-2 body sampling, serving, training and the
-host input pipeline on one NVIDIA GPU, with the modes, flags and metric
-names of the JAX package's `bench.py`.
+"""Measurement CLI of the port: stage-2 body sampling (`eval.pipeline.
+sample_bodies`, the served request's arithmetic), serving (`serving.
+Predictor`), training and the host input pipeline on one NVIDIA GPU, with
+the modes, flags and metric names of the JAX package's `bench.py`. The
+port's benchmark, which judges it, is `hmrbench/` (`python3
+hmrbench/run.py --workload <cell>`).
 
     python -m egohmr_tpu_torch.bench [--guided | --guided-ddim | --serving
         [--pack16] | --train | --host] [--batch-size N] [--iters K] [--f32]
         [--quick] [--cpu]
 
 Prints ONE JSON line, `{"metric": ..., "value": N, "unit": ...,
-"vs_baseline": N, "extra": {...}}`:
+"vs_baseline": null, "extra": {...}}`:
 
-  (default)      ddim5_samples_per_sec_per_chip: unguided DDIM-5 over the
-                 whole pipeline (conditioning once, five GCN steps, SMPL),
-                 batch 64, bf16 conditioning and denoiser with kernel K1,
-                 against the reference-architecture variant that reruns the
-                 f32 conditioning at every step, and the paper setting
-                 (32 images x 5 samples);
+  (default)      ddim5_samples_per_sec_per_chip: unguided DDIM-5 through
+                 `sample_bodies` (conditioning once, five GCN steps, SMPL),
+                 batch 64, bf16 conditioning and denoiser with kernel K1;
+                 and the paper setting (32 images x 5 samples);
   --guided       guided_ddpm50_samples_per_sec_per_chip, batch 16;
   --guided-ddim  guided_ddim5_samples_per_sec_per_chip, batch 64;
   --serving      serving_predictor_samples_per_sec_per_chip (`Predictor.
@@ -28,14 +29,13 @@ Prints ONE JSON line, `{"metric": ..., "value": N, "unit": ...,
 
 On the card each request program runs as one captured CUDA graph per
 shape (`utils/graphs.py:CapturedProgram`), as the JAX bench jits its
-programs: the default mode's fused request, the reference architecture's
-step and final outputs, the guided modes' `sample_bodies`, and the serving
-layer's request (`Predictor`). x_T and the steps' noise are drawn eagerly
-from the request's generator and copied in. The request hook gets each
-program's request eagerly (`program.eager`), so that every kernel call of
-it can be watched, and replayed, so that the replay can be held to it.
-`--train` runs eagerly. `extra.capture` holds the captures'
-seconds and the graphs' pool bytes.
+programs: the sampling modes' `sample_bodies` and the serving layer's
+request (`Predictor`). x_T and the steps' noise are drawn eagerly from the
+request's generator and copied in. The request hook gets each program's
+request eagerly (`program.eager`), so that every kernel call of it can be
+watched, and replayed, so that the replay can be held to it. `--train`
+runs eagerly. `extra.capture` holds the captures' seconds and the graphs'
+pool bytes.
 
 Throughput is steady state by chain-length differencing
 (`_chain_throughput`). Every result names its device: the card's name and
@@ -48,7 +48,6 @@ shapes, a smoke test.
 from __future__ import annotations
 
 import argparse
-import functools
 import json
 import os
 import subprocess
@@ -67,12 +66,6 @@ QUICK = dict(resnet_layers=18, img_feat_dim=512, scene_feat_dim=32,
              input_process_dim=32, gcn_hid_dim=64, gcn_layers=2)
 QUICK_SHAPES = (4, 512, 256, 32)  # batch, scene points, vertices, image size
 FULL_P, FULL_V, FULL_IMG = 20000, 6890, 224
-
-# imgs/s/chip that training consumes, the --host mode's yardstick: the
-# median of three runs of `--train` (bf16-mixed, batch 16, full width;
-# 104.6-148.5) on an NVIDIA H100 80GB HBM3 at a 700 W power limit
-TRAIN_BUDGET_IMGS_PER_S = 108.5
-
 
 
 class Request(NamedTuple):
@@ -281,275 +274,14 @@ def capture_extra(programs) -> Dict:
             "programs": sum(len(p.programs) for p in programs)}
 
 
-# ------------------------------------------------- the two DDIM-5 variants
-@torch.no_grad()
-def fused_pipeline(model, cfg, smpl, stats, schedule, batch, gen, num_samples: int, *,
-                   bf16: bool, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The framework's pipeline, `Predictor`'s arithmetic: conditioning once
-    per image (tiled over the `num_samples` samples), then DDIM over the
-    GCN, whose conditioning projection is hoisted out of the loop; with
-    `bf16` (`model` the bf16 copy) the conditioning and the denoiser run in
-    bf16 and the sampler and SMPL in f32. Returns pred_keypoints_3d."""
-    from .diffusion import sample_loop
-    from .eval.pipeline import _to_f32, tile_condition
-    from .models import compute_condition, make_denoise_fn, model_outputs
-
-    B = batch["img"].shape[0]
-    if bf16:
-        batch = dict(batch, img=batch["img"].to(torch.bfloat16))
-    cond = compute_condition(model, cfg, batch)
-    if num_samples > 1:
-        cond = tile_condition(cond, num_samples)
-    raw = make_denoise_fn(model, cfg, cond)
-    if bf16:
-        def denoise(x, t):
-            return raw(x.to(torch.bfloat16), t).float()
-
-        cond = _to_f32(cond)
-    else:
-        denoise = raw
-    _, x0 = sample_loop(schedule, denoise, gen, (B * num_samples, 144),
-                        sampler="ddim", noise=noise)
-    return model_outputs(cfg, smpl, cond, x0, stats)["pred_keypoints_3d"]
-
-
-@torch.no_grad()
-def reference_step(model, cfg, schedule, batch, x: torch.Tensor,
-                   t: torch.Tensor) -> torch.Tensor:
-    """One step of the reference's sampling loop at the respaced step index
-    `t` (int64 [B], one value): the whole conditioning (ResNet, scene
-    encoder, heads) run again, one denoiser call, the DDIM (eta 0) update.
-    The index is a tensor, so that one captured program serves every step,
-    as JAX's `ref_step` takes it traced."""
-    from .diffusion.schedule import predict_eps_from_xstart
-    from .models import compute_condition, make_denoise_fn
-
-    cond = compute_condition(model, cfg, batch)
-    x0 = make_denoise_fn(model, cfg, cond)(x, schedule.timestep_map[t])
-    eps = predict_eps_from_xstart(schedule, x, t, x0)
-    ab_prev = schedule.alphas_cumprod_prev[t][:, None]
-    return x0 * torch.sqrt(ab_prev) + torch.sqrt(1 - ab_prev) * eps
-
-
-@torch.no_grad()
-def reference_final(model, cfg, smpl, stats, batch, x: torch.Tensor) -> torch.Tensor:
-    """The reference's outputs: the conditioning once more, SMPL and the
-    reprojection; pred_keypoints_3d."""
-    from .models import compute_condition, model_outputs
-
-    cond = compute_condition(model, cfg, batch)
-    return model_outputs(cfg, smpl, cond, x, stats)["pred_keypoints_3d"]
-
-
-@torch.no_grad()
-def reference_pipeline(model, cfg, smpl, stats, schedule, batch, noise: torch.Tensor, *,
-                       fence: Optional[Callable[[], None]] = None,
-                       step: Optional[Callable] = None,
-                       final: Optional[Callable] = None) -> torch.Tensor:
-    """The reference architecture: a Python loop over the respaced steps,
-    each rerunning the f32 conditioning, then the conditioning once more
-    for the outputs. `fence` (a synchronise) runs after every step and at
-    the end, as the reference's per-step module calls wait. `step(batch,
-    x, t)` and `final(batch, x)` take the place of `reference_step` and
-    `reference_final` on this model (the bench passes their captured
-    programs). Returns pred_keypoints_3d."""
-    step = step or functools.partial(reference_step, model, cfg, schedule)
-    final = final or functools.partial(reference_final, model, cfg, smpl, stats)
-    x = noise
-    for i in range(schedule.num_timesteps - 1, -1, -1):
-        t = torch.full((x.shape[0],), i, dtype=torch.int64, device=x.device)
-        x = step(batch, x, t)
-        if fence is not None:
-            fence()
-    out = final(batch, x)
-    if fence is not None:
-        fence()
-    return out
-
-
 # ------------------------------------------------------------------- modes
-def _default_bench(args, dev, hook: RequestHook) -> int:
-    from .data import synthetic_batch
-    from .diffusion import make_schedule
-    from .nn import cast_params_bf16
-    from .smpl import make_synthetic_model
-
-    cfg = model_config(args.quick, pointnet_impl=args.pointnet)
-    B, P, V, img = QUICK_SHAPES if args.quick else (args.batch_size, FULL_P, FULL_V, FULL_IMG)
-    model = random_model(cfg, dev)
-    smpl = make_synthetic_model(num_vertices=V, device=dev)
-    stats = unit_stats(dev)
-    schedule = make_schedule(50, "cosine", "ddim5").to(dev)
-    batch = synthetic_batch(B, num_scene_points=P, img_size=img, device=dev)
-    use_bf16 = not args.f32
-    nn_model = cast_params_bf16(model) if use_bf16 else model
-    S = args.num_samples
-    NB = B * S
-
-    def fused_program(b, s):
-        return CapturedProgram(functools.partial(
-            fused_pipeline, nn_model, cfg, smpl, stats, schedule, gen=None, num_samples=s,
-            bf16=use_bf16), name=f"fused request ({b} images x {s} samples)")
-
-    # the request programs, as the JAX bench's jitted `fused`, `ref_step`
-    # and `ref_final`; the graph's inputs are the batch and x_T (DDIM with
-    # eta 0 draws no step noise)
-    fused_prog = fused_program(B, S)
-    ref_step = CapturedProgram(functools.partial(reference_step, model, cfg, schedule),
-                               name="reference-architecture step")
-    ref_final = CapturedProgram(functools.partial(reference_final, model, cfg, smpl, stats),
-                                name="reference-architecture outputs")
-    programs = [fused_prog, ref_step, ref_final]
-
-    def fused(i, run=fused_prog):
-        x_T = torch.randn((NB, 144), generator=generator(dev, i), device=dev)
-        return run(batch, noise=x_T)
-
-    def ref_style(i, step=ref_step, final=ref_final):
-        noise = torch.randn((B, 144), generator=generator(dev, i), device=dev)
-        return reference_pipeline(model, cfg, smpl, stats, schedule, batch, noise,
-                                  step=step, final=final)
-
-    def time_fn(fn, tag, n_bodies, eager):
-        if hook is not None:
-            hook(tag, Request(lambda: eager(10 ** 6), lambda: fn(10 ** 6)))
-        ch = _chain_throughput(fn, args.iters, dev, measure_latency=True,
-                               min_chain=min_chain(args))
-        _log(f"{tag}: first call {ch.first_s:.1f}s, blocking p50 {ch.p50 * 1e3:.1f}ms, "
-             f"pipelined {ch.dt * 1e3:.1f}ms/batch -> {n_bodies / ch.dt:.1f} samples/s")
-        return n_bodies / ch.dt, ch
-
-    fused_sps, fused_ch = time_fn(fused, "fused", NB,
-                                  lambda i: fused(i, run=fused_prog.eager))
-    readings = {"fused": fused_ch.readings}
-    ref_sps = disp_sps = disp_local_sps = rt_ms = None
-    if not (args.skip_baseline or S > 1):
-        ref_sps, ref_ch = time_fn(ref_style, "reference-architecture", B,
-                                  lambda i: ref_style(i, ref_step.eager, ref_final.eager))
-        readings["reference_architecture"] = ref_ch.readings
-
-        # the reference's execution model: the same per-step work driven
-        # with a completion fence after every step, as the reference's
-        # Python loop of module calls waits on each
-        def dispatch_batch(i):
-            noise = torch.randn((B, 144), generator=generator(dev, i), device=dev)
-            return reference_pipeline(model, cfg, smpl, stats, schedule, batch, noise,
-                                      fence=lambda: _sync(dev), step=ref_step,
-                                      final=ref_final)
-
-        dispatch_batch(0)  # warm
-        reps = max(2, args.iters // 2)
-        t0 = time.perf_counter()
-        for r in range(reps):
-            dispatch_batch(r + 1)
-        disp_dt = (time.perf_counter() - t0) / reps
-        n_fences = schedule.num_timesteps + 1
-
-        # one fence's round trip: a one-element add and a synchronise
-        tiny = torch.zeros(1, device=dev)
-        tiny + 1.0
-        _sync(dev)
-        rts = []
-        for _ in range(15):
-            t0 = time.perf_counter()
-            tiny + 1.0
-            _sync(dev)
-            rts.append(time.perf_counter() - t0)
-        rt = sorted(rts)[len(rts) // 2]
-        rt_ms = rt * 1e3
-        disp_sps = B / disp_dt
-        disp_local_sps = B / max(disp_dt - n_fences * rt, 1e-9)
-        readings["dispatch_baseline"] = {"s_per_batch": disp_dt, "reps": reps,
-                                         "fences": n_fences,
-                                         "round_trip_ms": [x * 1e3 for x in rts]}
-        _log(f"dispatch-mode baseline: {disp_dt * 1e3:.1f}ms/batch ({n_fences} fences x "
-             f"{rt_ms:.3f}ms round trip) -> {disp_sps:.1f} samples/s")
-
-    paper_sps = None
-    if not args.quick and S == 1:
-        B5, S5 = 32, 5
-        batch5 = synthetic_batch(B5, num_scene_points=P, img_size=img, device=dev)
-        paper_prog = fused_program(B5, S5)
-        programs.append(paper_prog)
-
-        def fused_paper(i, run=paper_prog):
-            x_T = torch.randn((B5 * S5, 144), generator=generator(dev, i), device=dev)
-            return run(batch5, noise=x_T)
-
-        if hook is not None:
-            hook("paper setting", Request(lambda: fused_paper(10 ** 6, run=paper_prog.eager),
-                                          lambda: fused_paper(10 ** 6)))
-        ch5 = _chain_throughput(fused_paper, args.iters, dev, min_chain=min_chain(args))
-        paper_sps = B5 * S5 / ch5.dt
-        readings["paper_setting"] = ch5.readings
-        _log(f"paper setting (32 imgs x 5 samples): pipelined {ch5.dt * 1e3:.1f}ms/batch "
-             f"-> {paper_sps:.1f} samples/s")
-
-    def ratio(a, b):
-        return a / b if b else None
-
-    result = {
-        "extra": {
-            "batch_size": B,
-            "num_samples_per_image": S,
-            "scene_points": P,
-            "p50_latency_ms_per_batch": _ms(fused_ch.p50),
-            "ms_per_batch": fused_ch.dt * 1e3,
-            "first_call_s": fused_ch.first_s,
-            "throughput_mode": "pipelined (launches queued, one synchronize at the end of "
-                               "a chain, chain-length differencing); latency is the "
-                               "blocking per-batch p50",
-            "conditioning_dtype": "bfloat16" if use_bf16 else "float32",
-            "pointnet_impl": cfg.pointnet_impl,
-            "tf32": tf32_state(),
-            "batch_on_device": "the batch stays on the device between calls; the "
-                               "--serving mode includes its upload",
-            "baseline": "same model, reference architecture (the whole conditioning "
-                        "recomputed at every one of the 5 respaced steps), same device, "
-                        "float32 (as the reference runs): vs_baseline includes the bf16 "
-                        "win unless --f32",
-            "vs_baseline_jitted": ratio(fused_sps, ref_sps),
-            "vs_baseline_jitted_note":
-                "the reference architecture with its steps' launches chained and no "
-                "per-step fence (the eager counterpart of the JAX bench's jitted "
-                "steps): the best that architecture runs here; the top-level "
-                "vs_baseline",
-            "vs_baseline_dispatch": ratio(fused_sps, disp_sps),
-            "vs_baseline_dispatch_note":
-                "the reference's execution model, measured: the same per-step work "
-                "with torch.cuda.synchronize after every step and after the outputs, "
-                "as the reference's Python loop of module calls waits on each",
-            "vs_baseline_dispatch_local_projection": ratio(fused_sps, disp_local_sps),
-            "vs_baseline_dispatch_local_note":
-                "the dispatch baseline with each fence's measured round trip taken "
-                "out: the p50 of a one-element add plus torch.cuda.synchronize on "
-                f"this device, {rt_ms if rt_ms is not None else '?'} ms, times "
-                "steps + 1 fences. The device is local, so this is the JAX bench's "
-                "local projection measured rather than projected",
-            "round_trip_ms_per_fence": rt_ms,
-            "paper_setting_samples_per_sec": paper_sps,
-            "launches_per_request": fused_ch.readings["launches_per_call"],
-            "capture": capture_extra(programs),
-            "readings": readings,
-            "platform": dev.type,
-            "device": device_name(dev),
-        },
-        "companion_benchmarks": None,
-        "metric": "ddim5_samples_per_sec_per_chip",
-        "value": fused_sps,
-        "unit": "samples/s",
-        "vs_baseline": ratio(fused_sps, ref_sps),
-        "git_rev": git_rev(),
-    }
-    print(json.dumps(result))
-    return 0
-
-
-def _guided_bench(args, dev, hook: RequestHook) -> int:
-    """Collision-guided sampling through `eval.pipeline.sample_bodies`:
-    guided DDPM-50 at batch 16 (--guided, the paper's setting) or guided
-    DDIM-5 at batch 64 (--guided-ddim); bf16 conditioning and denoiser
-    (the model cast once), f32 guidance, sampler and SMPL."""
+def _sampling_bench(args, dev, hook: RequestHook) -> int:
+    """Stage-2 body sampling through `eval.pipeline.sample_bodies`, the
+    served request's arithmetic: unguided DDIM-5 at batch 64 and the paper
+    setting, 32 images x 5 samples (default); guided DDPM-50 at batch 16
+    (--guided, the paper's setting) or guided DDIM-5 at batch 64
+    (--guided-ddim). bf16 conditioning and denoiser (the model cast once),
+    f32 guidance, sampler and SMPL; --f32 all f32."""
     from .data import synthetic_batch
     from .diffusion import GuidanceConfig, draw_step_noise, make_schedule
     from .eval.pipeline import sample_bodies
@@ -557,19 +289,22 @@ def _guided_bench(args, dev, hook: RequestHook) -> int:
     from .smpl import make_synthetic_model
 
     use_bf16 = not args.f32
+    guided = args.guided or args.guided_ddim
     cfg = model_config(args.quick, pointnet_impl=args.pointnet)
     if args.quick:
         B, P, V, img = QUICK_SHAPES
     else:
-        default_b = 64 if args.guided_ddim else 16
+        default_b = 16 if guided and not args.guided_ddim else 64
         B, P, V, img = (args.batch_size if args.batch_size != 64 else default_b,
                         FULL_P, FULL_V, FULL_IMG)
-    metric, _ = mode_metric(args)
+    metric, unit = mode_metric(args)
     if args.guided_ddim:
         sampler, respacing, tag = "ddim", "ddim5", "guided-ddim5"
-    else:
+    elif args.guided:
         sampler, respacing, tag = "ddpm", "", "guided"
-    refresh = max(1, args.guidance_refresh)
+    else:
+        sampler, respacing, tag = "ddim", "ddim5", "ddim5"
+    refresh = max(1, args.guidance_refresh) if guided else 1
     if refresh > 1:
         tag += f"-selreuse{refresh}"
     model = random_model(cfg, dev)
@@ -578,57 +313,83 @@ def _guided_bench(args, dev, hook: RequestHook) -> int:
     smpl = make_synthetic_model(num_vertices=V, device=dev)
     stats = unit_stats(dev)
     schedule = make_schedule(50, "cosine", respacing).to(dev)
-    batch = synthetic_batch(B, num_scene_points=P, img_size=img, device=dev)
     gcfg = GuidanceConfig(cond_grad_weight=2.0)
+    programs = []
 
-    def request(b, x_T, step_noise):
-        outs, _ = sample_bodies(
-            model, cfg, smpl, stats, schedule, b, None, 1,
-            sampler=sampler, with_guidance=True, guidance=gcfg, bf16=use_bf16,
-            params_precast=use_bf16, guidance_refresh_every=refresh, noise=x_T,
-            step_noise=step_noise)
-        return outs["pred_keypoints_3d"]
+    def timed(name, n_images, num_samples, measure_latency):
+        """Time the request of `n_images` x `num_samples` bodies as one
+        captured program (the JAX bench's jitted request), x_T and the
+        steps' noise drawn outside from the request's generator."""
+        batch = synthetic_batch(n_images, num_scene_points=P, img_size=img, device=dev)
+        rows = (n_images * num_samples, 144)
 
-    # the request program, as the JAX bench's jitted `guided`: the guided
-    # steps' autograd pass and K2 inside; x_T and the step noise drawn
-    # outside from the request's generator
-    program = CapturedProgram(request, name=f"{tag} request")
+        def request(b, x_T, step_noise):
+            outs, _ = sample_bodies(
+                model, cfg, smpl, stats, schedule, b, None, num_samples, sampler=sampler,
+                with_guidance=guided, guidance=gcfg, guidance_refresh_every=refresh,
+                noise=x_T, step_noise=step_noise)
+            return outs["pred_keypoints_3d"]
 
-    def guided(i, run=program):
-        gen = generator(dev, i)  # x_T, then the steps' noise, as sample_loop draws them
-        x_T = torch.randn((B, 144), generator=gen, device=dev)
-        return run(batch, x_T, draw_step_noise(schedule, gen, (B, 144), sampler=sampler))
+        program = CapturedProgram(
+            request, name=f"{name} request ({n_images} images x {num_samples} samples)")
+        programs.append(program)
 
-    if hook is not None:
-        hook(tag, Request(lambda: guided(10 ** 6, run=program.eager),
-                          lambda: guided(10 ** 6)))
-    ch = _chain_throughput(guided, args.iters, dev, measure_latency=True,
-                           min_chain=min_chain(args))
-    _log(f"{tag}: first call {ch.first_s:.1f}s, blocking p50 {ch.p50 * 1e3:.1f}ms, "
-         f"pipelined {ch.dt * 1e3:.1f}ms/batch -> {B / ch.dt:.1f} bodies/s")
+        def call(i, run=program):
+            gen = generator(dev, i)  # x_T, then the steps' noise, as sample_loop draws them
+            x_T = torch.randn(rows, generator=gen, device=dev)
+            return run(batch, x_T, draw_step_noise(schedule, gen, rows, sampler=sampler))
+
+        if hook is not None:
+            hook(name, Request(lambda: call(10 ** 6, run=program.eager),
+                               lambda: call(10 ** 6)))
+        ch = _chain_throughput(call, args.iters, dev, measure_latency=measure_latency,
+                               min_chain=min_chain(args))
+        latency = f"blocking p50 {ch.p50 * 1e3:.1f}ms, " if measure_latency else ""
+        _log(f"{name}: first call {ch.first_s:.1f}s, {latency}pipelined "
+             f"{ch.dt * 1e3:.1f}ms/batch -> {rows[0] / ch.dt:.1f} samples/s")
+        return ch
+
+    S = args.num_samples
+    ch = timed(tag, B, S, True)
+    readings = {tag: ch.readings}
+    extra = {
+        "batch_size": B,
+        "num_samples_per_image": S,
+        "scene_points": P,
+        "p50_latency_ms_per_batch": _ms(ch.p50),
+        "ms_per_batch": ch.dt * 1e3,
+        "first_call_s": ch.first_s,
+        "throughput_mode": "pipelined (launches queued, one synchronize at the end of "
+                           "a chain, chain-length differencing); latency is the "
+                           "blocking per-batch p50",
+        "sampler": f"{sampler}{schedule.num_timesteps}",
+        "conditioning_dtype": "bfloat16" if use_bf16 else "float32",
+        "pointnet_impl": cfg.pointnet_impl,
+        "tf32": tf32_state(),
+        "batch_on_device": "the batch stays on the device between calls; the "
+                           "--serving mode includes its upload",
+    }
+    if guided:
+        extra.update(cond_grad_weight=gcfg.cond_grad_weight,
+                     guidance_selection_refresh_every=refresh)
+    else:
+        paper_sps = None
+        if not args.quick and S == 1:
+            ch5 = timed("paper setting", 32, 5, False)
+            paper_sps = 32 * 5 / ch5.dt
+            readings["paper_setting"] = ch5.readings
+        extra["paper_setting_samples_per_sec"] = paper_sps
+    extra.update(launches_per_request=ch.readings["launches_per_call"],
+                 capture=capture_extra(programs), readings=readings, platform=dev.type,
+                 device=device_name(dev))
     print(json.dumps({
+        "extra": extra,
+        "companion_benchmarks": None,
         "metric": metric,
-        "value": B / ch.dt,
-        "unit": "samples/s",
+        "value": B * S / ch.dt,
+        "unit": unit,
         "vs_baseline": None,
-        "extra": {
-            "batch_size": B,
-            "scene_points": P,
-            "p50_latency_ms_per_batch": _ms(ch.p50),
-            "ms_per_batch": ch.dt * 1e3,
-            "first_call_s": ch.first_s,
-            "cond_grad_weight": 2.0,
-            "sampler": f"{sampler}{schedule.num_timesteps}",
-            "conditioning_dtype": "bfloat16" if use_bf16 else "float32",
-            "pointnet_impl": cfg.pointnet_impl,
-            "tf32": tf32_state(),
-            "guidance_selection_refresh_every": refresh,
-            "launches_per_request": ch.readings["launches_per_call"],
-            "capture": capture_extra([program]),
-            "readings": ch.readings,
-            "platform": dev.type,
-            "device": device_name(dev),
-        },
+        "git_rev": git_rev(),
     }))
     return 0
 
@@ -788,7 +549,7 @@ def _host_bench(args, dev) -> int:
     The JPEG corpus is made at HoloLens PV size (1920x1080, quality 90,
     smooth scene-like content, so decode costs what a real frame costs;
     --quick: 320x180) in a temporary directory, removed even when the run
-    dies. vs_baseline is the host rate over what training consumes."""
+    dies."""
     import shutil
     import tempfile
 
@@ -886,17 +647,14 @@ def _host_bench_body(args, dev, tmp) -> int:
         "metric": "host_pipeline_imgs_per_sec",
         "value": headline,
         "unit": "imgs/s",
-        "vs_baseline": headline / TRAIN_BUDGET_IMGS_PER_S,
+        "vs_baseline": None,
         "extra": {
             **results,
             "native_available": native.available(),
-            "device_train_budget_imgs_per_sec": TRAIN_BUDGET_IMGS_PER_S,
             "frame_size": f"{W}x{H} jpeg q90",
             "batch_size": B,
             "cpu_cores": os.cpu_count(),
-            "note": "vs_baseline = host rate / the rate the bf16-mixed training step "
-                    "consumes on an NVIDIA H100 (`--train`); >= 1 means the loader is "
-                    "not the bottleneck. native_threaded scales with the cores",
+            "note": "native_threaded scales with the cores",
             "platform": dev.type,
             "device": device_name(dev),
         },
@@ -941,8 +699,6 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--num-samples", type=int, default=1,
                     help="diverse samples per image; conditioning computed once per image "
                          "and tiled")
-    ap.add_argument("--skip-baseline", action="store_true",
-                    help="skip the reference-architecture variant")
     ap.add_argument("--guided", action="store_true",
                     help="guided DDPM-50 at batch 16 instead of the DDIM-5 headline")
     ap.add_argument("--guided-ddim", action="store_true",
@@ -983,13 +739,11 @@ def main(argv=None, *, request_hook: RequestHook = None) -> int:
     set_f32(args.f32)
     if args.host:
         return _host_bench(args, dev)
-    if args.guided or args.guided_ddim:
-        return _guided_bench(args, dev, request_hook)
     if args.serving:
         return _serving_bench(args, dev, request_hook)
     if args.train:
         return _train_bench(args, dev, request_hook)
-    return _default_bench(args, dev, request_hook)
+    return _sampling_bench(args, dev, request_hook)
 
 
 if __name__ == "__main__":

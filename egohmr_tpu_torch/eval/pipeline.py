@@ -36,7 +36,7 @@ from ..models import (
     make_guidance_fn,
     model_outputs,
 )
-from ..nn import cast_params_bf16
+from ..nn import is_bf16_copy
 from ..parallel.mesh import Shard, global_rows
 from ..parallel.tp import TensorParallel
 from ..smpl import SMPLModel, SMPLOutput, lbs, vertex_normals
@@ -80,10 +80,7 @@ def sample_bodies(
     use_stage1_transl: bool = True,
     collision_backend: str = "sdf",
     occ_net: Optional[PartFieldNet] = None,
-    bf16: bool = False,
-    params_precast: bool = False,
     guidance_refresh_every: int = 1,
-    guidance_grad_mode: str = "exact",
     noise: Optional[torch.Tensor] = None,
     step_noise: Optional[torch.Tensor] = None,
     shard: Shard = None,
@@ -105,10 +102,6 @@ def sample_bodies(
     path too. `guidance_refresh_every` > 1 reuses the guided step's
     selection pass across that many adjacent guided steps (an
     approximation; 1 is exact; the mesh SDF's only).
-    `guidance_grad_mode` is a profiling seam of the mesh SDF's guidance
-    ("forward-only" measures the guided step without its backward,
-    `tools/probe_guided_backward.py`; `make_guidance_fn`'s `grad_mode`);
-    anything but "exact" is not a product mode.
     The whole function runs without autograd; the guidance takes its
     gradient in a scope of its own.
 
@@ -117,10 +110,11 @@ def sample_bodies(
     given (`diffusion.draw_step_noise`), else drawn from `generator` as the
     loop goes. With both given the function draws nothing, reads nothing
     back to the host and allocates by shape alone, so it runs unchanged
-    inside a CUDA graph's capture (`serving.Predictor`). With `bf16` the conditioning and the
-    denoiser run in bfloat16 (BatchNorm statistics stay f32 and fold into
-    the activation dtype); the sampler, SMPL and the reprojection stay f32.
-    `params_precast` means `model` already is the bf16 copy.
+    inside a CUDA graph's capture (`serving.Predictor`). Handed a
+    `cast_params_bf16` copy of the model (`nn.is_bf16_copy`), the
+    conditioning and the denoiser run in bfloat16 (BatchNorm statistics
+    stay f32 and fold into the activation dtype); the sampler, the
+    guidance, SMPL and the reprojection stay f32.
 
     `shard` (a rank's record, or (i, n)): `batch` is a block of a larger
     batch (a data-parallel rank's, or a `Predictor` device's;
@@ -131,9 +125,9 @@ def sample_bodies(
     the n blocks together give what the whole batch gives in one run.
 
     `tp`: `model` placed over a data row's model axis (`parallel.tp`;
-    `model` is `tp.module`, and with `bf16` a bf16 copy placed, so
-    `params_precast` must be set): the scene encoder and the denoiser run
-    split, everything else on the row's first device.
+    `model` is `tp.module`, cast before it was placed for bf16): the
+    scene encoder and the denoiser run split, everything else on the row's
+    first device.
 
     `guidance_scene_points`: the guidance's cap on scene points, the top-K
     nearest the canonical origin (`collision.topk_scene_points`), for every
@@ -147,12 +141,6 @@ def sample_bodies(
     replayed request counts too): `guided_steps`, and `field_rows`, the
     (body, part, scene point) rows the learned field evaluates (0 for the
     mesh SDF)."""
-    if guidance_grad_mode != "exact" and collision_backend != "sdf":
-        raise ValueError("guidance_grad_mode is an sdf-backend profiling "
-                         "seam; use --collision_backend sdf")
-    if tp is not None and bf16 and not params_precast:
-        raise ValueError("a tensor-parallel model is cast before it is placed: place a "
-                         "cast_params_bf16 copy and pass params_precast=True")
     if (with_guidance and guidance_refresh_every != 1
             and collision_backend in ("occupancy", "volsdf")):
         raise ValueError(
@@ -172,9 +160,8 @@ def sample_bodies(
         batch["smpl_params"]["transl"] = batch["stage1_transl_full"]
     B = batch["img"].shape[0]
     mark("image", batch["img"])
+    bf16 = is_bf16_copy(model)
     if bf16:
-        if not params_precast:
-            model = cast_params_bf16(model)
         batch = dict(batch)
         batch["img"] = batch["img"].to(torch.bfloat16)
     cond = compute_condition(model, cfg, batch, tp=tp)
@@ -201,8 +188,7 @@ def sample_bodies(
         else:
             guidance_fn = make_guidance_fn(
                 model, cfg, smpl, cond_s, stats,
-                selection_refresh_every=guidance_refresh_every, grad_mode=guidance_grad_mode,
-                **kw)
+                selection_refresh_every=guidance_refresh_every, **kw)
         points = cond_s.scene_pcd.shape[1]
         if guidance_scene_points is not None:
             points = min(points, guidance_scene_points)

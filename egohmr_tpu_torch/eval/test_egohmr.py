@@ -307,8 +307,7 @@ def main(argv=None, **default_overrides):
             model, cfg, smpl_n, stats, schedule, batch, generator,
             args.num_samples, sampler=sampler, with_guidance=with_guidance,
             guidance=guidance, use_stage1_transl=args.two_stage,
-            collision_backend=args.collision_backend, occ_net=occ_net, bf16=args.bf16,
-            params_precast=args.bf16,
+            collision_backend=args.collision_backend, occ_net=occ_net,
             guidance_refresh_every=max(1, args.guidance_refresh), shard=dp,
         )
         return evaluate_batch(

@@ -448,7 +448,6 @@ def make_guidance_fn(
     per_step_points: Optional[int] = 1024,
     selection_refresh_every: int = 1,
     global_rows: Optional[int] = None,
-    grad_mode: str = "exact",
 ):
     """Collision-score gradient w.r.t. x_t, batched with static shapes:
     returns fn(x_t [B, 144], t [B]) -> grad [B, 144]. `model` and `cfg` are
@@ -492,16 +491,7 @@ def make_guidance_fn(
     whole batch's, so that each body feels the gradient it would in the
     1-way run: the shard's loss is its sum over the global count (each
     body's gradient depends on its own rows only, so no collective is
-    needed).
-
-    `grad_mode`: "exact" (the gradient) or "forward-only", a profiling
-    seam (`tools/probe_guided_backward.py`): the differentiable pass runs
-    forward and its backward is skipped, so the difference of the two is
-    the backward's cost. The result is the loss x 1e-24 broadcast to
-    x_t's shape, numerically nil, as in the JAX package; not a product
-    mode."""
-    if grad_mode not in ("exact", "forward-only"):
-        raise ValueError(f"grad_mode must be 'exact' or 'forward-only', got {grad_mode!r}")
+    needed)."""
     dev = cond.scene_pcd.device
     scale = _guide_joint_scale(dev)  # [1, 24, 1]
     betas = cond.pred_betas.detach()
@@ -545,10 +535,6 @@ def make_guidance_fn(
         return -torch.sum(per_body) / (global_rows or per_body.shape[0])
 
     def grad_given(x_t: torch.Tensor, sel) -> torch.Tensor:
-        if grad_mode == "forward-only":
-            with torch.no_grad():
-                val = neg_collision(x_t, sel)
-            return (val * 1e-24).expand(x_t.shape).contiguous()
         with torch.enable_grad():
             x = x_t.detach().requires_grad_(True)
             (grad,) = torch.autograd.grad(neg_collision(x, sel), x)

@@ -1,6 +1,7 @@
 """Modules and forward functions of the two stages' models. The K1 kernel
 wrapper (`pointnet_fused`) builds its CUDA library only when first called."""
-from .core import batchnorm, batchnorm_eval, bf16_tensors, cast_params_bf16, linear, mm, silu
+from .core import (batchnorm, batchnorm_eval, bf16_tensors, cast_params_bf16, is_bf16_copy,
+                   linear, mm, silu)
 from .embedders import (
     FCHead,
     FCHeadBeta,

@@ -137,6 +137,14 @@ def cast_params_bf16(model: nn.Module) -> nn.Module:
     return model
 
 
+def is_bf16_copy(model: nn.Module) -> bool:
+    """Whether `model` is a `cast_params_bf16` copy: its first parameter
+    outside the BatchNorms is bfloat16."""
+    first = next(p for m in model.modules() if not _is_batchnorm(m)
+                 for p in m.parameters(recurse=False))
+    return first.dtype == torch.bfloat16
+
+
 def bf16_tensors(model: nn.Module) -> Dict[str, torch.Tensor]:
     """{name: bf16 cast} of every float32 parameter and buffer of `model`
     outside the BatchNorms, the set `cast_params_bf16` casts, for

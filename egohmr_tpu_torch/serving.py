@@ -305,7 +305,7 @@ class Predictor:
             collision_backend=self.collision_backend, occ_net=net,
             guidance_scene_points=self.guidance_scene_points,
             record_guidance=self.record_guidance, counter=self,
-            bf16=self.bf16, params_precast=self.bf16, tp=placed, **kw)
+            tp=placed, **kw)
         return outs
 
     def _request(self, replica, shard, batch: Dict, x_T: torch.Tensor,

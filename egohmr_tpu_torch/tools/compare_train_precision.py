@@ -85,7 +85,7 @@ def make_val_fn(cfg, stats, smpl):
             schedule_eval = make_schedule(50, "cosine", "ddim5").to(dev)
         out, cond = sample_bodies(model, cfg, smpl, stats, schedule_eval, batch,
                                   torch.Generator(device=dev).manual_seed(seed), 1,
-                                  sampler="ddim", with_guidance=False, bf16=False)
+                                  sampler="ddim", with_guidance=False)
         out1 = {k: v[:, 0] for k, v in out.items()}
         _, losses = compute_loss(cfg, LossWeights(), smpl, smpl, smpl, batch, cond, out1,
                                  train=False, use_collision=False)

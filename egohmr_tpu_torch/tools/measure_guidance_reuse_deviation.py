@@ -85,8 +85,8 @@ def main(argv=None) -> int:
         k2_0 = knn.launches
         outs, _ = sample_bodies(
             model, cfg, smpl, stats, schedule, batch, torch.Generator(device=dev).manual_seed(7),
-            1, sampler=sampler, with_guidance=with_guidance, guidance=gcfg, bf16=True,
-            params_precast=True, guidance_refresh_every=refresh)
+            1, sampler=sampler, with_guidance=with_guidance, guidance=gcfg,
+            guidance_refresh_every=refresh)
         launches[name] = knn.launches - k2_0
         return outs["pred_vertices"][:, 0].float().cpu().numpy()
 

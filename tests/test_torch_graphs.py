@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+from egohmr_tpu_torch.collision.neural_occupancy import OccupancyConfig, PartFieldNet
+from egohmr_tpu_torch.collision.neural_sdf import SDFNetConfig
 from egohmr_tpu_torch.data import synthetic_batch, to_torch
 from egohmr_tpu_torch.diffusion import (GuidanceConfig, draw_step_noise, make_schedule,
                                         sample_loop)
@@ -100,24 +102,38 @@ def _batch(n=2, points=400, img=64, seed=5):
     return synthetic_batch(n, num_scene_points=points, img_size=img, seed=seed)
 
 
-REQUESTS = [("ddim", "ddim5", False), ("ddim", "ddim5", True), ("ddpm", "", True)]
+# (sampler, respacing, collision backend or None for an unguided request)
+REQUESTS = [("ddim", "ddim5", None), ("ddim", "ddim5", "sdf"), ("ddpm", "", "sdf"),
+            ("ddpm", "", "volsdf"), ("ddpm", "", "occupancy")]
 
 
-@pytest.mark.parametrize("sampler,respacing,guided", REQUESTS,
-                         ids=["unguided-ddim5", "guided-ddim5", "guided-ddpm50"])
+def _learned_net(backend):
+    """A tiny learned collision net of `backend`, drawn from a seed."""
+    widths = dict(latent_dim=8, hidden_dim=16, num_layers=3, part_embed_dim=4)
+    cfg = SDFNetConfig(**widths) if backend == "volsdf" else OccupancyConfig(**widths)
+    return PartFieldNet(cfg, generator=torch.Generator().manual_seed(7)).requires_grad_(False)
+
+
+@pytest.mark.parametrize("sampler,respacing,backend", REQUESTS,
+                         ids=["unguided-ddim5", "guided-ddim5", "guided-ddpm50",
+                              "volsdf-ddpm50", "occupancy-ddpm50"])
 def test_predictor_request_is_sample_bodies_on_the_drawn_noise(port, sampler, respacing,
-                                                               guided):
+                                                               backend):
     """A `Predictor` request on the CPU (bf16, as served) equals
     `sample_bodies` on the same replica, called directly with x_T and the
     step noise drawn from the request's seed in the request's order, bit
-    for bit; `Predictor.eager` is the same request. On the CPU nothing is
-    captured."""
+    for bit; `Predictor.eager` is the same request. Guided by the mesh SDF
+    or by a learned net (a tiny one drawn from a seed), whose guided steps
+    the request counts. On the CPU nothing is captured."""
     _, tcfg, _, model, smpl, stats = port
     sched = make_schedule(50, "cosine", respacing)
     S, seed = 2, 6
+    guided = backend is not None
+    net = _learned_net(backend) if backend in ("volsdf", "occupancy") else None
     pred = Predictor(model, tcfg, smpl, stats, sched, device="cpu", batch_size=2,
                      num_samples=S, sampler=sampler, with_guidance=guided,
                      guidance=GuidanceConfig(cond_grad_weight=60.0, ddim_scale=30.0),
+                     collision_backend=backend or "sdf", collision_net=net,
                      output_keys=MESH_OUTPUT_KEYS)
     assert not pred.captured
     batch = _batch()
@@ -128,7 +144,8 @@ def test_predictor_request_is_sample_bodies_on_the_drawn_noise(port, sampler, re
     rep, rsmpl, rstats, rsched, _ = pred._replicas[0]
     want, _ = sample_bodies(rep, pred.cfg, rsmpl, rstats, rsched, to_torch(batch, "cpu"), None,
                             S, sampler=sampler, with_guidance=guided, guidance=pred.guidance,
-                            bf16=True, params_precast=True, noise=x_T, step_noise=noise)
+                            collision_backend=backend or "sdf",
+                            occ_net=pred._collision_nets[0], noise=x_T, step_noise=noise)
     for k in MESH_OUTPUT_KEYS:
         assert got[k].shape == tuple(want[k].shape), k
         np.testing.assert_array_equal(got[k], want[k].float().numpy(), err_msg=k)
@@ -136,6 +153,9 @@ def test_predictor_request_is_sample_bodies_on_the_drawn_noise(port, sampler, re
     for k in got:
         np.testing.assert_array_equal(again[k], got[k], err_msg=k)
     assert pred._programs[0].programs == {}
+    if net is not None:  # two requests, 11 guided steps each over 400 points
+        assert pred.guided_steps == 2 * 11
+        assert pred.field_rows == 2 * 11 * 2 * S * 24 * 400
 
 
 def test_predictor_request_program_matches_jax(port):
@@ -293,7 +313,7 @@ def _same(a, b) -> bool:
 
 
 @pytest.mark.parametrize("argv,names", [
-    ([], ["fused", "reference-architecture"]), (["--guided-ddim"], ["guided-ddim5"]),
+    ([], ["ddim5"]), (["--guided-ddim"], ["guided-ddim5"]),
     (["--guided"], ["guided"]), (["--serving"], ["serving"]), (["--train"], [])],
     ids=["default", "guided-ddim", "guided", "serving", "train"])
 def test_bench_hands_the_hook_each_programs_replay(argv, names, capsys):

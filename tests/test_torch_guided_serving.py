@@ -4,8 +4,9 @@ seed, against the benchmark's plain reference of EgoHMR-VolSMPL
 (`hmrbench/reference/egohmr-volsmpl.py`, plain PyTorch): the learned SDF's
 guided DDPM request and its per-step gradient, the mesh SDF's gradient
 against `make_guidance_fn`; the guided steps' record and its step
-identity on both backends; the whole scene (`guidance_scene_points=None`)
-against as many explicit points; the field in chunks against one chunk;
+identity on all three backends (the occupancy net the SDF net with its
+head negated); the whole scene (`guidance_scene_points=None`) against as
+many explicit points; the field in chunks against one chunk;
 the counters; the refusals. The card's side (the captured request against
 eager) is in `tests/test_torch_gpu.py` and `chip_smoke.py` phase 15."""
 import numpy as np
@@ -13,7 +14,7 @@ import pytest
 import torch
 
 from egohmr_tpu_torch.collision import neural_occupancy as occ
-from egohmr_tpu_torch.collision.neural_occupancy import PartFieldNet
+from egohmr_tpu_torch.collision.neural_occupancy import OccupancyConfig, PartFieldNet
 from egohmr_tpu_torch.collision.neural_sdf import SDFNetConfig, make_volsdf_guidance_fn
 from egohmr_tpu_torch.diffusion import GuidanceConfig, draw_step_noise, make_schedule
 from egohmr_tpu_torch.models import (BodyRepStats, Condition, EgoHMR, EgoHMRConfig,
@@ -56,16 +57,30 @@ def setup():
     return cfg, W, tables, net, Wf, small, full
 
 
+def collision_net(setup, backend):
+    """The learned backend's net, a copy of the setup's SDF net; for the
+    occupancy backend with its head negated, so that the occupancy is over
+    0.5 where the SDF is negative; None for the mesh SDF."""
+    if backend not in ("volsdf", "occupancy"):
+        return None
+    W = setup[3].state_dict()
+    if backend == "volsdf":
+        net = PartFieldNet(setup[3].cfg)
+    else:
+        net = PartFieldNet(OccupancyConfig(**{k: v for k, v in NET.items() if k != "trunc"}))
+        head = f"decoder.{NET['num_layers'] - 1}."
+        W = {k: -v if k.startswith(head) else v for k, v in W.items()}
+    net.load_state_dict(W)
+    return net.requires_grad_(False)
+
+
 def predictor(setup, backend="volsdf", **kw):
-    cfg, W, tables, net, _, _, _ = setup
+    cfg, W, tables, _, _, _, _ = setup
     model = EgoHMR(cfg)
     model.load_state_dict(W)
     kw = dict(dict(sampler="ddpm", with_guidance=True, record_guidance=True,
                    guidance=GuidanceConfig(**GCFG), collision_backend=backend,
-                   collision_net=PartFieldNet(net.cfg).requires_grad_(False)
-                   if backend != "sdf" else None), **kw)
-    if kw["collision_net"] is not None:
-        kw["collision_net"].load_state_dict(net.state_dict())
+                   collision_net=collision_net(setup, backend)), **kw)
     return Predictor(model.eval(), cfg, SMPLModel(**tables), BodyRepStats(*STATS),
                      make_schedule(T, "cosine", ""), device="cpu", batch_size=B,
                      num_samples=S, bf16=False, pointnet_impl="xla", **kw)
@@ -132,7 +147,7 @@ def test_mesh_guidance_matches_the_reference(setup):
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4, atol=1e-6)
 
 
-@pytest.mark.parametrize("backend", ["volsdf", "sdf"])
+@pytest.mark.parametrize("backend", ["volsdf", "sdf", "occupancy"])
 def test_record_holds_each_guided_steps_identity(setup, backend):
     """Each guided step's record: its output is the unguided mean plus c_t
     g_t plus sigma_t z_t, with z_t the request's own step noise (drawn
@@ -157,7 +172,7 @@ def test_record_holds_each_guided_steps_identity(setup, backend):
         if j + 1 < G:
             assert torch.equal(rec[j + 1, 0], o)
     assert pred.guided_steps == G
-    assert pred.field_rows == (G * rows * 24 * P if backend == "volsdf" else 0)
+    assert pred.field_rows == (0 if backend == "sdf" else G * rows * 24 * P)
 
 
 def test_whole_scene_equals_as_many_explicit_points(setup):

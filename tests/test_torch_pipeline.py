@@ -26,10 +26,11 @@ from egohmr_tpu_torch.diffusion import GuidanceConfig, make_schedule
 from egohmr_tpu_torch.diffusion import sampler as tsampler
 from egohmr_tpu_torch.eval import sample_bodies, tile_condition
 from egohmr_tpu_torch.models import BodyRepStats
+from egohmr_tpu_torch.nn import cast_params_bf16
 from egohmr_tpu_torch.serving import MESH_OUTPUT_KEYS, Predictor
 from egohmr_tpu_torch.smpl import make_synthetic_model
 
-from .torch_parity import THREADS, tiny_pair, to_jax, to_np
+from .torch_parity import THREADS, TINY, tiny_pair, to_jax, to_np
 
 S, V = 2, 512
 KEYS = ("pred_keypoints_3d", "pred_vertices", "pred_betas")
@@ -88,12 +89,67 @@ def test_sample_bodies_bf16_close_to_jax_f32(setup, impl):
 
     jout, x_T = _jax_run(setup, jax.random.PRNGKey(12))
     _, (model, tcfg, smpl, stats, sched), batch = setup
-    out, _ = sample_bodies(model, dataclasses.replace(tcfg, pointnet_impl=impl), smpl,
-                           stats, sched, to_torch(batch, "cpu"), None, S, sampler="ddim",
-                           bf16=True, noise=torch.tensor(x_T))
+    cfg = dataclasses.replace(tcfg, pointnet_impl=impl)
+    out, _ = sample_bodies(cast_params_bf16(model), cfg, smpl, stats, sched,
+                           to_torch(batch, "cpu"), None, S, sampler="ddim",
+                           noise=torch.tensor(x_T))
     got = to_np(out["pred_keypoints_3d"])
     assert out["pred_keypoints_3d"].dtype == torch.float32 and np.isfinite(got).all()
     assert np.mean(np.abs(got - np.asarray(jout["pred_keypoints_3d"]))) < 0.05
+
+
+@pytest.mark.parametrize("pointnet_impl", ["fused", "xla"])
+def test_sample_bodies_equals_per_step_reconditioning(pointnet_impl):
+    """The hoisted conditioning is exact: in f32, `sample_bodies`' unguided
+    DDIM-5 (the condition computed once, the GCN's conditioning projection
+    hoisted out of the loop) and the loop written out here, which runs the
+    whole conditioning (ResNet, scene encoder, heads) again at every step
+    before one denoiser call and the DDIM (eta 0) update, then once more
+    for the outputs, give the same pred_keypoints_3d for the same x_T at
+    rtol 1e-4, atol 1e-5."""
+    from egohmr_tpu_torch.diffusion.schedule import predict_eps_from_xstart
+    from egohmr_tpu_torch.models import (EgoHMR, EgoHMRConfig, compute_condition,
+                                         init_random_, make_denoise_fn, model_outputs)
+
+    cfg = EgoHMRConfig(**TINY, pointnet_impl=pointnet_impl)
+    model = init_random_(EgoHMR(cfg), seed=0).eval().to(memory_format=torch.channels_last)
+    smpl = make_synthetic_model(num_vertices=128)
+    stats = BodyRepStats(torch.zeros(144), torch.ones(144))
+    schedule = make_schedule(50, "cosine", "ddim5")
+    batch = synthetic_batch(3, num_scene_points=300, img_size=32, seed=4,
+                            device=torch.device("cpu"))
+    x = torch.tensor(np.random.RandomState(5).randn(3, 144).astype(np.float32))
+    out, _ = sample_bodies(model, cfg, smpl, stats, schedule, batch, None, 1, sampler="ddim",
+                           noise=x)
+    with torch.no_grad():
+        for i in range(schedule.num_timesteps - 1, -1, -1):
+            t = torch.full((3,), i, dtype=torch.int64)
+            x0 = make_denoise_fn(model, cfg, compute_condition(model, cfg, batch))(
+                x, schedule.timestep_map[t])
+            eps = predict_eps_from_xstart(schedule, x, t, x0)
+            ab_prev = schedule.alphas_cumprod_prev[t][:, None]
+            x = x0 * torch.sqrt(ab_prev) + torch.sqrt(1 - ab_prev) * eps
+        want = model_outputs(cfg, smpl, compute_condition(model, cfg, batch), x,
+                             stats)["pred_keypoints_3d"]
+    got = out["pred_keypoints_3d"][:, 0]
+    assert got.shape == want.shape == (3, 45, 3)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4, atol=1e-5)
+
+
+def test_is_bf16_copy_reads_the_cast_outside_the_batchnorms():
+    """`sample_bodies` runs the bf16 path exactly for a `cast_params_bf16`
+    copy: `is_bf16_copy` reads the first parameter outside the BatchNorms,
+    which the cast leaves f32, so a model that opens with a BatchNorm is
+    read by its next layer."""
+    from egohmr_tpu_torch.models import EgoHMR, EgoHMRConfig
+    from egohmr_tpu_torch.nn import is_bf16_copy
+
+    model = EgoHMR(EgoHMRConfig(**TINY))
+    assert not is_bf16_copy(model) and is_bf16_copy(cast_params_bf16(model))
+    bn_first = torch.nn.Sequential(torch.nn.BatchNorm1d(4), torch.nn.Linear(4, 2))
+    cast = cast_params_bf16(bn_first)
+    assert cast[0].weight.dtype == torch.float32 and cast[1].weight.dtype == torch.bfloat16
+    assert not is_bf16_copy(bn_first) and is_bf16_copy(cast)
 
 
 def _first_then_zeros(x_T):
@@ -149,8 +205,10 @@ def test_sample_bodies_guidance_options(setup):
 
     _, (model, tcfg, smpl, stats, sched), batch = setup
     b = to_torch(batch, "cpu")
-    run = lambda **kw: sample_bodies(model, tcfg, smpl, stats, sched, b,  # noqa: E731
-                                     torch.Generator().manual_seed(0), 1, sampler="ddim", **kw)
+    run = lambda m=model, **kw: sample_bodies(m, tcfg, smpl, stats, sched, b,  # noqa: E731
+                                              torch.Generator().manual_seed(0), 1,
+                                              sampler="ddim", **kw)
+    model16 = cast_params_bf16(model)
     art = os.path.join(os.path.dirname(__file__), "..", "artifacts")
     nets = {"occupancy": load_occupancy(os.path.join(art, "occupancy_synthetic_signed.npz")),
             "volsdf": load_sdfnet(os.path.join(art, "volsdf_synthetic.npz"))}
@@ -161,7 +219,7 @@ def test_sample_bodies_guidance_options(setup):
         with pytest.raises(ValueError, match="sdf-backend knob"):
             run(with_guidance=True, collision_backend=backend, guidance_refresh_every=2,
                 occ_net=net)
-        out, cond = run(with_guidance=True, collision_backend=backend, occ_net=net, bf16=True,
+        out, cond = run(model16, with_guidance=True, collision_backend=backend, occ_net=net,
                         guidance=GuidanceConfig(ddim_scale=1e4))
         assert cond.scene_pcd.dtype == torch.float32 and torch.isfinite(out["pred_pose_6d"]).all()
         assert not torch.equal(run(with_guidance=True, collision_backend=backend,
@@ -171,7 +229,7 @@ def test_sample_bodies_guidance_options(setup):
     exact = run(with_guidance=True)[0]["pred_pose_6d"]
     reuse = run(with_guidance=True, guidance_refresh_every=2)[0]["pred_pose_6d"]
     assert torch.isfinite(reuse).all() and (reuse - exact).abs().max() < 1e-2
-    out, cond = run(with_guidance=True, bf16=True)
+    out, cond = run(model16, with_guidance=True)
     assert cond.scene_pcd.dtype == torch.float32 and cond.pred_betas.dtype == torch.float32
     assert out["pred_pose_6d"].dtype == torch.float32 and torch.isfinite(out["pred_pose_6d"]).all()
 
@@ -268,8 +326,7 @@ def test_port_never_imports_jax():
             "interop/__init__.py", "interop/coap_convert.py", "interop/volsmpl_convert.py",
             "eval/test_egohmr_volsmpl.py", "train/distill_occupancy.py",
             "train/distill_sdf.py", "parallel/__init__.py", "parallel/mesh.py",
-            "utils/device.py", "bench.py", "tools/profile_serving.py",
-            "tools/probe_guided_backward.py", "tools/real_weights_eval.py",
+            "utils/device.py", "bench.py", "tools/profile_serving.py", "tools/real_weights_eval.py",
             "tools/visualize_results.py", "tools/measure_guidance_reuse_deviation.py",
             "tools/compare_train_precision.py", "tools/probe_gcn.py",
             "utils/graphs.py"} <= walked
@@ -301,7 +358,6 @@ def test_port_never_imports_jax():
         "import egohmr_tpu_torch.preprocess.scene, egohmr_tpu_torch.flow\n"
         "import egohmr_tpu_torch.parallel, egohmr_tpu_torch.utils.device\n"
         "import egohmr_tpu_torch.bench, egohmr_tpu_torch.tools.profile_serving\n"
-        "import egohmr_tpu_torch.tools.probe_guided_backward\n"
         "from egohmr_tpu_torch.tools import real_weights_eval, visualize_results, probe_gcn\n"
         "from egohmr_tpu_torch.tools import measure_guidance_reuse_deviation\n"
         "from egohmr_tpu_torch.tools import compare_train_precision\n"

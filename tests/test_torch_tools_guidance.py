@@ -34,9 +34,10 @@ def test_figures_match_the_jax_tools(monkeypatch):
     `init_egohmr` and the port tool's `EgoHMRConfig` and `random_model`
     swapped for one tiny pair of weights), batch 2, 600 scene points,
     --refresh 2: both tools sample from the same x_T with zero step noise,
-    in f32 (each tool's bf16 switched off in its `sample_bodies`: in bf16
-    the rounding, amplified by the guided sampler, moves the tiny bodies by
-    more than the guidance does, the test below). Every guidance weight is
+    in f32 (bf16 switched off: the JAX tool's in its `sample_bodies`, the
+    port tool's by leaving its model uncast; in bf16 the rounding,
+    amplified by the guided sampler, moves the tiny bodies by more than the
+    guidance does, the test below). Every guidance weight is
     raised 1000x on both sides (cond_grad_weight 2,000, ddim_scale 1,000),
     where the smallest figure, DDIM-5's mean guidance effect, reads 0.834
     mm, over 80x the bar: every mm figure of the two JSON lines within 0.01
@@ -74,7 +75,7 @@ def test_figures_match_the_jax_tools(monkeypatch):
     monkeypatch.setattr(tool, "GuidanceConfig", raised(tool.GuidanceConfig))
     monkeypatch.setattr(tool, "cast_params_bf16", lambda m: m)
     monkeypatch.setattr(tool, "sample_bodies", lambda *a, **kw: t_sample(*a, **{
-        **kw, "bf16": False, "params_precast": False, "noise": torch.tensor(x_T)}))
+        **kw, "noise": torch.tensor(x_T)}))
     monkeypatch.setattr(tsampler, "_step_noise", lambda x, g, shard: torch.zeros_like(x))
     got = _last_json(tool.main, ["--points", str(P), "--refresh", "2", "--cpu"])
 
@@ -112,8 +113,6 @@ def test_bf16_rounding_outweighs_the_guidance_at_tiny_widths(monkeypatch, capsys
         *a, **{**kw, "noise": torch.tensor(x_T)}))
     bf16 = _last_json(tool.main, argv)["modes"]
     monkeypatch.setattr(tool, "cast_params_bf16", lambda m: m)
-    monkeypatch.setattr(tool, "sample_bodies", lambda *a, **kw: t_sample(*a, **{
-        **kw, "bf16": False, "params_precast": False, "noise": torch.tensor(x_T)}))
     f32 = _last_json(tool.main, argv)["modes"]
     with capsys.disabled():
         print(f"\nbf16: {json.dumps(bf16)}\nf32: {json.dumps(f32)}")

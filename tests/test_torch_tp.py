@@ -326,6 +326,3 @@ def test_refusals():
     with pytest.raises(ValueError, match="pointnet_impl='fused'"):
         compute_condition(placed.module, dataclasses.replace(cfg, pointnet_impl="fused"), batch,
                           tp=placed)
-    with pytest.raises(ValueError, match="params_precast"):
-        sample_bodies(placed.module, cfg, smpl, stats, schedule, batch, None, 1, bf16=True,
-                      tp=placed)
