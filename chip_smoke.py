@@ -16,7 +16,12 @@ Phases (any failure exits non-zero):
                one 8192^3 product; hold the graph-convolution epilogue
                (`nn/gconv_epilogue.py`) to its plain statement at the
                bulk (128) and mesh-guided (160) denoiser rows and time it
-               against the plain glue it replaces and its bound
+               against the plain glue it replaces and its bound; hold the
+               ResNet epilogue (`nn/resnet_epilogue.py`) to its plain
+               statement bit for bit at each of ResNet-50's 49 passes at
+               B = 64, and time each pass against its byte bound and the
+               plain glue it replaces, summed over a request, and the
+               whole bf16 forward fused and plain
   4. serve   — serve unguided requests at full width (ResNet-50, 20k scene
                points, 6890-vertex synthetic SMPL, DDIM-5, bf16, random
                weights from a seed) through `serving.Predictor`, counting
@@ -172,10 +177,11 @@ launch per replay of it, `utils/graphs.py:count_launch`), and the phases
 count from after `warmup()`, whose eager warm-up runs launch for real. In
 each of these phases' counted runs one replayed request of every program
 (phase 14: every counted request) runs under the profiler, and its K1 and
-K2 launches by the accounting must equal those counted from the device's
-kernels (K1's four stage kernels, K2's search kernel): the kernels line's
-`launches_profiled`. Kernel calls are watched in eager requests
-(`Predictor.eager`, the request hook's `program.eager`), and replayed ones
+K2 launches and both epilogues' by the accounting must equal those counted
+from the device's kernels (K1's four stage kernels, K2's search kernel, one
+kernel a call of each epilogue): the kernels line's `launches_profiled`.
+Kernel calls are watched in eager requests (`Predictor.eager`, the request
+hook's `program.eager`), and replayed ones
 are held to them through replay's bit-equality with eager.
 Before the last line come a JSON object with one entry per kernel and the
 card's name and power limit; the last line is {"ok": true, "device":
@@ -184,6 +190,7 @@ card's name and power limit; the last line is {"ok": true, "device":
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import os
 import subprocess
@@ -226,34 +233,42 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
 
 # K1's and K2's device kernels per wrapper call: K1 is four stage and four
 # context kernels, K2 one search kernel (and, split, a combine kernel); the
-# graph-convolution epilogue one kernel a fused convolution
+# graph-convolution epilogue one kernel a fused convolution, the ResNet
+# epilogue one a fused pass
 DEVICE_KERNELS = {"k1": ("stage_kernel", 4), "k2": ("nearest_vertex_kernel", 1),
-                  "gconv": ("gconv_epilogue_kernel", 1)}
+                  "gconv": ("gconv_epilogue_kernel", 1),
+                  "resnet": ("resnet_epilogue_kernel", 1)}
 # their launches in the main paths' requests run under the profiler,
 # counted from the device's kernels (`profiled_launches`)
-PROFILED = {"k1": 0, "k2": 0, "gconv": 0}
-# fused graph convolutions on each phase's main paths, each path counted from
-# 0 just before it, as K1's and K2's launches are (`gconv_starts`, `gconv_ends`)
-GCONV = {}
+PROFILED = {"k1": 0, "k2": 0, "gconv": 0, "resnet": 0}
+# fused graph convolutions and fused ResNet passes on each phase's main
+# paths, each path counted from 0 just before it, as K1's and K2's launches
+# are (`fused_starts`, `fused_ends`)
+GCONV, RESNET = {}, {}
 
 
-def gconv_starts() -> None:
-    """A main path starts: the fused graph convolutions count from 0."""
+def fused_starts() -> None:
+    """A main path starts: the fused graph convolutions and ResNet passes
+    count from 0."""
     from egohmr_tpu_torch.nn import gconv_epilogue as ge
+    from egohmr_tpu_torch.nn import resnet_epilogue as re_
 
-    ge.gconv_fused = 0
+    ge.gconv_fused = re_.resnet_fused = 0
 
 
-def gconv_ends(phase: str) -> int:
-    """A main path ends: its fused graph convolutions, added to `phase`'s."""
+def fused_ends(phase: str) -> tuple:
+    """A main path ends: its fused graph convolutions and ResNet passes,
+    added to `phase`'s."""
     from egohmr_tpu_torch.nn import gconv_epilogue as ge
+    from egohmr_tpu_torch.nn import resnet_epilogue as re_
 
     GCONV[phase] = GCONV.get(phase, 0) + ge.gconv_fused
-    return ge.gconv_fused
+    RESNET[phase] = RESNET.get(phase, 0) + re_.resnet_fused
+    return ge.gconv_fused, re_.resnet_fused
 
 
 def launches_on_device(prof) -> dict:
-    """K1's, K2's and the epilogue's wrapper calls in a profiler session,
+    """K1's, K2's and the epilogues' wrapper calls in a profiler session,
     counted from the device kernels it recorded, inside graph replays
     too."""
     import re
@@ -269,28 +284,62 @@ def launches_on_device(prof) -> dict:
     return out
 
 
-def profiled_launches(request, what: str, want: dict = None):
-    """`request()` on a synchronised card under the profiler: its result and
-    K1's, K2's and the fused graph convolutions' launches in it, counted
-    from the device's kernels. Fails unless the wrappers' counts (for a
-    replayed request, its program's replay accounting) equal them, and
-    `want` on the kernels it names. Adds them to PROFILED."""
+MARKERS = 256  # marker kernels that lead each session of `traced`
+
+
+def markers_in(prof) -> tuple:
+    """The marker kernels (`torch.cuda._sleep`) in a profiler session: how
+    many, and their device ms."""
+    ev = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" in e.key]
+    return sum(e.count for e in ev), sum(e.self_device_time_total for e in ev) / 1e3
+
+
+@contextlib.contextmanager
+def traced(what: str, cpu: bool = False):
+    """A profiler session (the device's activity, and the host's with
+    `cpu`) on a synchronised card, led by MARKERS marker kernels: late in a
+    long process the trace was seen to drop the first device records of
+    every session (a request's copies and first kernels, never later ones),
+    so that they fall on the markers. Fails if it kept none of them."""
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]) as prof:
+        for _ in range(MARKERS):
+            torch.cuda._sleep(100)
+        torch.cuda.synchronize()
+        yield prof
+        torch.cuda.synchronize()
+    kept = markers_in(prof)[0]
+    if kept < 1:
+        fail(f"{what}: the trace lost all {MARKERS} marker kernels before it, so it may have "
+             "lost its first kernels too")
+    if kept < MARKERS:
+        log("profiler", f"{what}: the trace lost {MARKERS - kept} of the {MARKERS} marker "
+                        "kernels before it")
+
+
+def profiled_launches(request, what: str, want: dict = None):
+    """`request()` on a synchronised card under the profiler: its result and
+    K1's, K2's, the fused graph convolutions' and ResNet passes' launches in
+    it, counted from the device's kernels. Fails unless the wrappers' counts (for a
+    replayed request, its program's replay accounting) equal them, and
+    `want` on the kernels it names. Adds them to PROFILED."""
     from egohmr_tpu_torch.collision import knn as k2
     from egohmr_tpu_torch.nn import gconv_epilogue as ge
     from egohmr_tpu_torch.nn import pointnet_fused as k1
+    from egohmr_tpu_torch.nn import resnet_epilogue as re_
 
-    torch.cuda.synchronize()
-    b1, b2, b3 = k1.launches, k2.launches, ge.gconv_fused
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    b1, b2, b3, b4 = k1.launches, k2.launches, ge.gconv_fused, re_.resnet_fused
+    with traced(what) as prof:
         out = request()
-        torch.cuda.synchronize()
-    counted = {"k1": k1.launches - b1, "k2": k2.launches - b2, "gconv": ge.gconv_fused - b3}
+    counted = {"k1": k1.launches - b1, "k2": k2.launches - b2, "gconv": ge.gconv_fused - b3,
+               "resnet": re_.resnet_fused - b4}
     device = launches_on_device(prof)
     if counted != device or (want is not None
                              and any(device[k] != v for k, v in want.items())):
-        fail(f"{what}: K1, K2 and epilogue launches {counted} by the wrappers' counts, "
+        fail(f"{what}: K1, K2 and epilogues' launches {counted} by the wrappers' counts, "
              f"{device} by the device kernels under the profiler"
              + (f" (want {want})" if want else ""))
     for k in PROFILED:
@@ -340,7 +389,8 @@ def phase_device() -> str:
 def phase_build() -> None:
     from egohmr_tpu_torch import _build
 
-    names = ["pointnet_fused", "nearest_vertex", "probe_mma", "markers", "gconv_epilogue"]
+    names = ["pointnet_fused", "nearest_vertex", "probe_mma", "markers", "gconv_epilogue",
+             "resnet_epilogue"]
     t0 = time.perf_counter()
     _build.build(names)
     log("build", f"{', '.join(n + '.cu' for n in names)} built for sm_90a in "
@@ -449,23 +499,25 @@ def phase_kernel_k1(cfg) -> dict:
 # fused graph convolutions a denoiser call at EgoHMRConfig()'s 4 residual
 # blocks: the input one and two a block (the output convolution stays plain)
 GCONV_PER_CALL = 9
+# fused passes a bf16 ResNet-50 forward: the stem and three a block (16)
+RESNET_PER_FORWARD = 49
 
 
-def device_ms(fn, n: int = 50) -> float:
-    """Device time of one `fn()` (every kernel it launches), from the
-    profiler over n calls after one more."""
-    from torch.profiler import ProfilerActivity, profile
+def device_ms(fn, n: int = 50, kernel: str = None) -> float:
+    """Device time of one `fn()` (every kernel it launches, or those named
+    `kernel`), from the profiler over n calls after one more."""
+    import re
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with traced("device_ms") as prof:
         for _ in range(n):
             fn()
-        torch.cuda.synchronize()
     total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and "spin_kernel" not in e.key
+                and (kernel is None or re.search(rf"\b{kernel}\b", e.key)))
     if total <= 0:
-        fail("the profiler recorded no device time")
+        fail("the profiler recorded no device time" + (f" in {kernel}" if kernel else ""))
     return total / 1e3 / n
 
 
@@ -541,6 +593,133 @@ def phase_kernel_gconv(cfg) -> dict:
             "ms": res[128]["ms"], "plain_ms": res[128]["plain_ms"],
             "bound_ms": res[128]["bound_ms"], "bound_by": res[128]["bound_by"],
             "library_ms": None, "rows_160": res[160]}
+
+
+def phase_kernel_resnet() -> dict:
+    """The ResNet epilogue at each of ResNet-50's pass shapes at B = 64
+    against its plain statement, bit for bit (the kernel rounds each f32
+    product and sum as the statement does, and the output once, in place);
+    its device time a pass against the plain glue it replaces
+    (`batchnorm_eval`, the residual through the downsample BatchNorm,
+    `torch.relu`) and its bound by bytes (a and the residual read, the
+    output written), each call on fresh buffers, rotated over more than
+    twice the card's L2; then one whole bf16 ResNet-50 forward at B = 64,
+    fused and plain (`_fused` off): its 49 passes by the wrapper's count and
+    by the profiler, and their device time inside the forward, which is the
+    time set against the 49 passes' bound."""
+    from egohmr_tpu_torch.nn import ResNet, cast_params_bf16, resnet_forward
+    from egohmr_tpu_torch.nn import resnet as resnet_module
+    from egohmr_tpu_torch.nn import resnet_epilogue as re_
+    from egohmr_tpu_torch.nn.core import batchnorm_eval
+
+    passes = re_.RESNET50_PASSES
+    if sum(n for *_, n in passes) != RESNET_PER_FORWARD:
+        fail("RESNET50_PASSES does not list ResNet-50's 49 passes")
+    dev, cl, B = torch.device("cuda"), torch.channels_last, B_TIME
+    l2 = getattr(torch.cuda.get_device_properties(dev), "L2_cache_size", 50 * 2 ** 20)
+    g = torch.Generator().manual_seed(5)
+    gd = torch.Generator(device=dev).manual_seed(6)
+
+    def bn_drawn(C):
+        bn = torch.nn.BatchNorm2d(C).eval()
+        with torch.no_grad():
+            bn.weight.copy_(1 + 0.1 * torch.randn(C, generator=g))
+            bn.bias.copy_(0.1 * torch.randn(C, generator=g))
+            bn.running_mean.copy_(0.3 * torch.randn(C, generator=g))
+            bn.running_var.copy_(1 + torch.rand(C, generator=g))
+        return bn.to(dev)
+
+    def act(shape, relu=False):
+        x = torch.randn(shape, device=dev, generator=gd)
+        return (torch.relu(x) if relu else x).bfloat16().contiguous(memory_format=cl)
+
+    def rotating(call, sets):
+        """`call(a, r)` on the next of `sets` each time: no call finds its
+        bytes in L2 from the one before."""
+        turn = itertools.count()
+        return lambda: call(*sets[next(turn) % len(sets)])
+
+    rows, summed = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    with torch.no_grad():
+        for C, H, form, n in passes:
+            bn, bn_ds = bn_drawn(C), bn_drawn(C)
+            c, shape = re_.build_constants(bn), (B, C, H, H)
+            c_ds = re_.build_constants(bn_ds) if form == 2 else None
+            a = act(shape)
+            r = act(shape, relu=form == 1) if form else None
+            ref = re_.resnet_epilogue_reference(a, c, r, c_ds)
+            got = re_.resnet_epilogue(a.clone(), c, r, c_ds)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                differ = int((got != ref).sum())
+                fail(f"the ResNet epilogue differs from its plain statement at {shape}, form "
+                     f"{form}: {differ} of {got.numel()} outputs")
+            set_bytes = a.numel() * 2 * (2 if form else 1)
+            sets = [(a, r)] + [(act(shape), act(shape, relu=form == 1) if form else None)
+                               for _ in range(-(-4 * l2 // set_bytes) - 1)]
+            ms = device_ms(rotating(lambda a_, r_: re_.resnet_epilogue(a_, c, r_, c_ds), sets))
+
+            def plain(a_, r_):
+                y = batchnorm_eval(bn, a_, 1)
+                if form == 1:
+                    y = y + r_
+                elif form == 2:
+                    y = y + batchnorm_eval(bn_ds, r_, 1)
+                return torch.relu(y)
+
+            plain_ms = device_ms(rotating(plain, sets))
+            del sets
+            nbytes = a.numel() * 2 * (3 if form else 2)
+            bound_ms = nbytes / PEAK_BYTES * 1e3
+            rows.append({"C": C, "H": H, "form": form, "passes": n, "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": bound_ms})
+            for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms)):
+                summed[k] += n * v
+            log("kernel", f"ResNet epilogue at [{B}, {C}, {H}, {H}], form {form} (x{n} a "
+                          f"forward): bit for bit against its plain statement; device ms a pass "
+                          f"(profiler, buffers rotated over 4x L2) {ms:.4f}, plain glue "
+                          f"{plain_ms:.4f}, bound by bytes {bound_ms:.4f}: "
+                          f"{bound_ms / ms * 100:.1f}% of it")
+    log("kernel", f"ResNet epilogue, the {RESNET_PER_FORWARD} passes of a forward at B={B} "
+                  f"timed each alone: {summed['ms']:.3f} ms, plain glue "
+                  f"{summed['plain_ms']:.3f} ms; bound {summed['bound_ms']:.3f} ms by bytes")
+
+    # one whole forward, fused and plain
+    torch.manual_seed(7)
+    model = ResNet(50).eval()
+    for m in model.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.load_state_dict(bn_drawn(m.num_features).cpu().state_dict())
+    m16 = cast_params_bf16(model.to(dev))
+    x = torch.randn(B, 224, 224, 3, generator=g).to(dev, torch.bfloat16)
+    with torch.no_grad():
+        feats, _ = profiled_launches(lambda: resnet_forward(m16, x), "a bf16 ResNet-50 forward",
+                                     want={"resnet": RESNET_PER_FORWARD})
+        forward_ms = device_ms(lambda: resnet_forward(m16, x), n=10)
+        in_forward_ms = device_ms(lambda: resnet_forward(m16, x), n=10,
+                                  kernel=DEVICE_KERNELS["resnet"][0])
+        fused_ = resnet_module._fused
+        resnet_module._fused = lambda *a: False
+        try:
+            plain = resnet_forward(m16, x)
+            plain_forward_ms = device_ms(lambda: resnet_forward(m16, x), n=10)
+        finally:
+            resnet_module._fused = fused_
+    gap = (feats.float() - plain.float()).abs().max().item()
+    scale = plain.float().abs().max().item()
+    log("kernel", f"bf16 ResNet-50 forward at B={B}, device ms (profiler): fused "
+                  f"{forward_ms:.3f}, plain {plain_forward_ms:.3f}; the {RESNET_PER_FORWARD} "
+                  f"passes inside the fused forward {in_forward_ms:.3f} ms against their "
+                  f"{summed['bound_ms']:.3f} ms bound by bytes "
+                  f"({summed['bound_ms'] / in_forward_ms * 100:.1f}% of it); features fused vs "
+                  f"plain max |diff| {gap:.3e} of max {scale:.3e}")
+    if not (gap <= 0.05 * scale and torch.isfinite(feats.float()).all()):
+        fail("the fused ResNet-50 forward strays from the plain one beyond 0.05 of the largest")
+    return {"name": "resnet_epilogue", "route": "cuda",
+            "source": "egohmr_tpu_torch/csrc/resnet_epilogue.cu", "replaces": None,
+            "ms": in_forward_ms, "bound_ms": summed["bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "alone_ms": summed["ms"], "plain_ms": summed["plain_ms"],
+            "forward_ms": forward_ms, "plain_forward_ms": plain_forward_ms, "by_shape": rows}
 
 
 def k1_agrees(got, ref):
@@ -840,7 +1019,7 @@ def phase_serve(cfg) -> int:
                 fail(f"{k}: shape {out[k].shape} (want {shape}) or non-finite values")
 
     k1.launches = k2.launches = 0  # main path starts: count launches from here
-    gconv_starts()
+    fused_starts()
     results = []
     for name, batch in (("full request", full), ("short request", short)):
         before = k1.launches
@@ -868,12 +1047,14 @@ def phase_serve(cfg) -> int:
     # a replayed request's launches by the replay accounting against the
     # device's kernels
     out, _ = profiled_launches(lambda: pred(full, seed=2), "serve: a replayed request",
-                               want={"k1": 1, "k2": 0, "gconv": GCONV_PER_CALL * 5})
+                               want={"k1": 1, "k2": 0, "gconv": GCONV_PER_CALL * 5,
+                                     "resnet": RESNET_PER_FORWARD})
     check(out, B)
     log("serve", f"a replayed request under the profiler: K1 1 launch, {GCONV_PER_CALL * 5} "
-                 "fused graph convolutions by the replay accounting and by the device's kernels")
+                 f"fused graph convolutions, {RESNET_PER_FORWARD} fused ResNet passes by the "
+                 "replay accounting and by the device's kernels")
     launches = k1.launches  # main path ends
-    gconv_ends("serve")
+    fused_ends("serve")
     if k2.launches != 0:
         fail(f"the unguided path launched K2 {k2.launches} times")
 
@@ -1039,7 +1220,7 @@ def phase_guided(cfg) -> dict:
     torch.cuda.synchronize()
 
     k1.launches = k2.launches = 0  # main path starts: count launches from here
-    gconv_starts()
+    fused_starts()
     for i, (sampler, schedule, B, n_guided, sizes) in enumerate(runs):
         pred, batch, free = served[i]
         for n in sizes:
@@ -1064,12 +1245,13 @@ def phase_guided(cfg) -> dict:
         out, _ = profiled_launches(lambda: pred(batch, seed=2),
                                    f"guided {sampler}: a replayed request",
                                    want={"k1": 1, "k2": n_guided,
-                                         "gconv": GCONV_PER_CALL * schedule.num_timesteps})
+                                         "gconv": GCONV_PER_CALL * schedule.num_timesteps,
+                                         "resnet": RESNET_PER_FORWARD})
         check(out, B)
         log("guided", f"{sampler}: a replayed request under the profiler: K1 1, K2 {n_guided} "
                       "launches by the replay accounting and by the device's kernels")
     counts = {"k1": k1.launches, "k2": k2.launches}  # main path ends
-    gconv_ends("guided")
+    fused_ends("guided")
 
     # Guidance acted. With random weights the denoiser's x0 barely follows
     # x_t, so of the guided steps' shifts only the last one lands on the
@@ -1294,10 +1476,10 @@ def phase_eval(cfg) -> dict:
     counts = {"k1": 0, "k2": 0}
     for name, (extra, guided_steps) in EVAL_RUNS.items():
         k1.launches = k2.launches = 0  # main path starts: count launches from here
-        gconv_starts()
+        fused_starts()
         summary, secs = run(extra)
         d1, d2 = k1.launches, k2.launches  # main path ends
-        gconv_ends("eval")
+        fused_ends("eval")
         want2 = n_batches * (2 + guided_steps)
         log("eval", f"{name}, bf16 + K1, {B} images x {S} samples x {n_batches} batches: "
                     f"{secs:.2f} s for the whole CLI run (model set-up included); K1 launches "
@@ -1615,13 +1797,13 @@ def phase_train(cfg) -> dict:
                 "--save_step", "1000", "--data_parallel", "false", "--start_coap_step", "2",
                 "--save_dir", save_dir]
         k1.launches = k2.launches = 0  # main path starts: count launches from here
-        gconv_starts()
+        fused_starts()
         t = time.perf_counter()
         train_egohmr.main(args + ["--num_steps", "2"])
         train_egohmr.main(args + ["--num_steps", "4"])
         secs = time.perf_counter() - t
         counts = {"k1": k1.launches, "k2": k2.launches}  # main path ends
-        gconv_ends("train")
+        fused_ends("train")
         with open(f"{save_dir}/metrics.jsonl") as f:
             steps = [json.loads(line)["step"] for line in f]
     log("train", f"the CLI, --synthetic, 2 steps then resumed to 4: {secs:.1f} s (model set-up "
@@ -2205,14 +2387,14 @@ def phase_learned_guided(cfg) -> dict:
             sample(net, smpl, backend, sampler, schedule, batch, True)  # warm-up
             torch.cuda.synchronize()
             k1.launches = k2.launches = 0  # main path starts: count launches from here
-            gconv_starts()
+            fused_starts()
             torch.cuda.reset_peak_memory_stats()
             t = time.perf_counter()
             out = sample(net, smpl, backend, sampler, schedule, batch, True)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t) * 1e3
             d1, d2 = k1.launches, k2.launches  # main path ends
-            gconv_ends("learned")
+            fused_ends("learned")
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
             counts["k1"] += d1
             counts["k2"] += d2
@@ -2311,13 +2493,13 @@ def phase_learned_eval() -> dict:
         if extra:
             extra = extra + [artifact("occupancy_synthetic.npz")]
         k1.launches = k2.launches = 0  # main path starts: count launches from here
-        gconv_starts()
+        fused_starts()
         t = time.perf_counter()
         summary = mods[mod].main(EVAL_ARGS + extra)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t
         d1, d2 = k1.launches, k2.launches  # main path ends
-        gconv_ends("learned")
+        fused_ends("learned")
         counts["k1"] += d1
         counts["k2"] += d2
         f32 = mods[mod].main(EVAL_ARGS + extra + F32_PLAIN)
@@ -2972,13 +3154,13 @@ def dp_rank_eval(dp, tmp) -> dict:
     for name, extra in DP_EVAL_RUNS.items():
         with kernel_calls() as seen:
             k1.launches = k2.launches = 0  # main path starts: count launches from here
-            gconv_starts()
+            fused_starts()
             t = time.perf_counter()
             res[f"eval {name}"] = cli.main(EVAL_ARGS + extra)
             torch.cuda.synchronize()
             res[f"eval {name} s"] = time.perf_counter() - t
             res[f"eval {name} k1"], res[f"eval {name} k2"] = k1.launches, k2.launches  # ends
-            res[f"eval {name} gconv"] = gconv_ends("parallel")
+            res[f"eval {name} gconv"], res[f"eval {name} resnet"] = fused_ends("parallel")
         if (len(seen["k1"]), len(seen["k2"])) != (k1.launches, k2.launches):
             fail(f"(c) eval {name} on rank {dp.rank}: {len(seen['k1'])} K1 and "
                  f"{len(seen['k2'])} K2 calls recorded for {k1.launches} and {k2.launches} "
@@ -3070,7 +3252,7 @@ def dp_predictor(cfg) -> dict:
             with kernel_calls() as seen:
                 eager = pred.eager(batch, seed=1)
             k1.launches = 0  # main path starts: count launches from here
-            gconv_starts()
+            fused_starts()
             # one replayed request under the profiler: the replay accounting
             # against the device's kernels and the eager request's calls
             profiled_launches(lambda: pred(batch, seed=1), f"(d) {name}, {tag}",
@@ -3082,7 +3264,7 @@ def dp_predictor(cfg) -> dict:
                 outs[tag] = pred(batch, seed=1)
                 times.append((time.perf_counter() - t0) * 1e3)
             launched = k1.launches  # main path ends
-            gconv_ends("parallel")
+            fused_ends("parallel")
             if 4 * len(seen["k1"]) != launched or seen["k2"]:
                 fail(f"(d) {name}, {tag}: {len(seen['k1'])} K1 calls recorded in an eager "
                      f"request for {launched} launches in 4 replayed ones, "
@@ -3150,14 +3332,14 @@ def phase_parallel(cfg) -> dict:
         for name, extra in DP_EVAL_RUNS.items():
             with kernel_calls() as seen:
                 k1.launches = k2.launches = 0  # main path starts: count launches from here
-                gconv_starts()
+                fused_starts()
                 t = time.perf_counter()
                 one[name] = cli.main(EVAL_ARGS + extra)
                 torch.cuda.synchronize()
                 one[f"{name} s"] = time.perf_counter() - t
                 counts["k1"] += k1.launches  # main path ends
                 counts["k2"] += k2.launches
-                gconv_ends("parallel")
+                fused_ends("parallel")
             log("parallel", hold_kernel_calls(seen, f"(c) eval {name}, 1-way"))
             del seen
     finally:
@@ -3198,6 +3380,7 @@ def phase_parallel(cfg) -> dict:
             counts["k1"] += d1
             counts["k2"] += d2
             GCONV["parallel"] = GCONV.get("parallel", 0) + r[f"eval {name} gconv"]
+            RESNET["parallel"] = RESNET.get("parallel", 0) + r[f"eval {name} resnet"]
             if d1 != want_k1 or d2 != 2 * (2 + guided):
                 fail(f"(c) eval {name} on rank {r['rank']}: K1 {d1} launches (want {want_k1}), "
                      f"K2 {d2} (want {2 * (2 + guided)}: 2 per batch and {guided} guided steps "
@@ -3349,10 +3532,10 @@ def phase_tp(cfg, dev=None) -> dict:
             fail(f"{name}: {w} is not cut into {TP_TP} shards on the grid: {shapes}")
         with kernel_calls() as seen:
             k1.launches = k2.launches = 0  # main path starts: count launches from here
-            gconv_starts()
+            fused_starts()
             grid_out, grid_host, grid_event = serve(pred)
             d1, d2 = k1.launches, k2.launches  # main path ends
-            gconv_ends("tp")
+            fused_ends("tp")
         n_req = TP_REQUESTS + 1
         if d1 or len(seen["k1"]) or d2 != want_k2 * n_req or len(seen["k2"]) != d2:
             fail(f"{name}: on the grid K1 launched {d1} times (want 0), K2 {d2} (want "
@@ -3480,11 +3663,11 @@ def phase_bench() -> dict:
         out = io.StringIO()
         t0 = time.perf_counter()
         k1.launches = k2.launches = 0  # this run's main path starts
-        gconv_starts()
+        fused_starts()
         with contextlib.redirect_stdout(out):
             rc = entry.main(argv + ["--iters", str(BENCH_ITERS)], request_hook=hold)
         launches = {"k1": k1.launches, "k2": k2.launches}  # and ends
-        gconv_ends("bench")
+        fused_ends("bench")
         lines = [line for line in out.getvalue().splitlines() if line.startswith("{")]
         if rc != 0 or len(lines) != 1:
             fail(f"bench {name}: exit {rc}, {len(lines)} JSON lines: {out.getvalue()[-2000:]}")
@@ -3621,7 +3804,7 @@ def run_tool(name: str, argv, counts: dict, held: list):
     t0 = time.perf_counter()
     with kernel_calls() as seen:
         k1.launches = k2.launches = 0  # this tool's main path starts
-        gconv_starts()
+        fused_starts()
         try:
             with contextlib.redirect_stdout(out):
                 ret = entry.main(argv)
@@ -3630,7 +3813,7 @@ def run_tool(name: str, argv, counts: dict, held: list):
             raise
         torch.cuda.synchronize()
         launches = {"k1": k1.launches, "k2": k2.launches}  # and ends
-        gconv_ends("tools")
+        fused_ends("tools")
     secs = time.perf_counter() - t0
     for k in ("k1", "k2"):
         if len(seen[k]) != launches[k]:
@@ -3876,18 +4059,18 @@ def graph_times(pred, batch) -> dict:
 def graph_profile(request) -> dict:
     """One blocking request under the profiler: the host's launch calls
     (graph launches, kernel launches, copies), the device's kernels and
-    copies and their ms, and K1's and K2's launches counted from them."""
-    from torch.profiler import ProfilerActivity, profile
-
+    copies and their ms, and K1's and K2's launches counted from them (the
+    lead-in markers of `traced` left out)."""
     from egohmr_tpu_torch.utils.profiling import device_kernels, host_launches
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with traced("a profiled request", cpu=True) as prof:
         request()
-        torch.cuda.synchronize()
-    kernels = device_kernels(prof)
-    return {"host": host_launches(prof), "device_kernels": kernels["count"],
-            "kernel_ms": kernels["ms"], "launches": launches_on_device(prof)}
+    kernels, host = device_kernels(prof), host_launches(prof)
+    n, ms = markers_in(prof)
+    host["kernel_launches"] -= MARKERS
+    host["total"] -= MARKERS
+    return {"host": host, "device_kernels": kernels["count"] - n,
+            "kernel_ms": kernels["ms"] - ms, "launches": launches_on_device(prof)}
 
 
 def phase_graphs(cfg, smi: str) -> dict:
@@ -3956,13 +4139,14 @@ def phase_graphs(cfg, smi: str) -> dict:
             fail(f"{name}: the one-device Predictor on the card is not captured")
         pred.warmup(batch)
         k1.launches = k2.launches = 0  # main path starts: count launches from here
-        gconv_starts()
+        fused_starts()
         # under the profiler: the replay accounting against the device's kernels
         got, _ = profiled_launches(lambda: [pred(batch, seed=s) for s in GRAPH_SEEDS], name,
                                    want={"k1": len(GRAPH_SEEDS), "k2": 0,
-                                         "gconv": GCONV_PER_CALL * 5 * len(GRAPH_SEEDS) * bf16})
+                                         "gconv": GCONV_PER_CALL * 5 * len(GRAPH_SEEDS) * bf16,
+                                         "resnet": RESNET_PER_FORWARD * len(GRAPH_SEEDS) * bf16})
         d1, d2 = k1.launches, k2.launches  # main path ends
-        gconv_ends("graphs")
+        fused_ends("graphs")
         res["k1"] += d1
         gaps = [max_gap(g, pred.eager(batch, seed=s)) for g, s in zip(got, GRAPH_SEEDS)]
         pred.warmup(other)  # a second shape, a second program
@@ -3999,13 +4183,14 @@ def phase_graphs(cfg, smi: str) -> dict:
         eager_gap = max_gap(e1, e2)
         pred.warmup(scene)
         k1.launches = k2.launches = 0  # main path starts: count launches from here
-        gconv_starts()
+        fused_starts()
         # under the profiler: the replay accounting against the device's kernels
         got, _ = profiled_launches(lambda: pred(scene, seed=1), name,
                                    want={"k1": 1, "k2": n_guided,
-                                         "gconv": GCONV_PER_CALL * schedule.num_timesteps})
+                                         "gconv": GCONV_PER_CALL * schedule.num_timesteps,
+                                         "resnet": RESNET_PER_FORWARD})
         d1, d2 = k1.launches, k2.launches  # main path ends
-        gconv_ends("graphs")
+        fused_ends("graphs")
         res["k1"] += d1
         res["k2"] += d2
         gap = max_gap(got, e1)
@@ -4069,12 +4254,12 @@ def phase_served_volsdf(cfg, smi: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     before = (pred.guided_steps, pred.field_rows)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    gconv_starts()  # main path starts
+    fused_starts()  # main path starts
     start.record()
     got = pred(batch, seed=1)
     end.record()
     torch.cuda.synchronize()
-    fused = gconv_ends("volsdf")  # main path ends
+    fused, fused_resnet = fused_ends("volsdf")  # main path ends
     ms, peak = start.elapsed_time(end), torch.cuda.max_memory_allocated()
     counted = (pred.guided_steps - before[0], pred.field_rows - before[1])
     want_rows = steps * B * S * 24 * P_FULL
@@ -4093,12 +4278,23 @@ def phase_served_volsdf(cfg, smi: str) -> dict:
     if gap > bar:
         fail("volsdf (a): the replayed request strays from the eager one")
     want_fused = GCONV_PER_CALL * schedule.num_timesteps
-    if counted != (steps, want_rows) or fused != want_fused:
-        fail(f"volsdf (a): counters {counted} and {fused} fused graph convolutions, want "
-             f"{(steps, want_rows)} and {want_fused}")
+    if (counted != (steps, want_rows) or fused != want_fused
+            or fused_resnet != RESNET_PER_FORWARD):
+        fail(f"volsdf (a): counters {counted}, {fused} fused graph convolutions and "
+             f"{fused_resnet} fused ResNet passes, want {(steps, want_rows)}, {want_fused} "
+             f"and {RESNET_PER_FORWARD}")
     if rec.shape[2] != steps or not np.all(np.isfinite(rec)) or grad.max() == 0:
         fail(f"volsdf (a): the record holds {rec.shape[2]} steps (want {steps}), or a "
              "non-finite value, or no gradient")
+    # one more replayed request under the profiler: the accounting against
+    # the device's kernels
+    fused_starts()
+    profiled_launches(lambda: pred(batch, seed=2), "volsdf (a): a replayed request",
+                      want={"k1": 1, "k2": 0, "gconv": want_fused, "resnet": RESNET_PER_FORWARD})
+    fused_ends("volsdf")
+    log("volsdf", f"(a) a replayed request under the profiler: K1 1, {want_fused} fused graph "
+                  f"convolutions, {RESNET_PER_FORWARD} fused ResNet passes by the replay "
+                  "accounting and by the device's kernels")
     del pred
     torch.cuda.empty_cache()
 
@@ -4153,7 +4349,8 @@ def main() -> None:
 
     timed("build", phase_build)
     kernels = timed("kernel", lambda: [phase_kernel_k1(cfg), phase_kernel_k2(),
-                                       phase_kernel_k3(), phase_kernel_gconv(cfg)])
+                                       phase_kernel_k3(), phase_kernel_gconv(cfg),
+                                       phase_kernel_resnet()])
     unguided = timed("serve", phase_serve, cfg)
     guided = timed("guided", phase_guided, cfg)
     evaluated = timed("eval", phase_eval, cfg)
@@ -4198,6 +4395,9 @@ def main() -> None:
     kernels[3].update(launches=sum(GCONV.values()),
                       **{f"launches_{phase}": n for phase, n in GCONV.items()},
                       launches_profiled=PROFILED["gconv"])
+    kernels[4].update(launches=sum(RESNET.values()),
+                      **{f"launches_{phase}": n for phase, n in RESNET.items()},
+                      launches_profiled=PROFILED["resnet"])
     for k in kernels:
         if k["launches"] < 1:
             fail(f"{k['name']} was never launched on a main path")
